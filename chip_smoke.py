@@ -1,0 +1,288 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port: its main path on one card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, nvcc (CUDA_HOME, default /usr/local/cuda) and g++;
+builds the port's kernels and the C++ engine from the checkout at first
+use. Imports no JAX. Phases, one JSON line each:
+
+1. environment: torch/CUDA versions, the kernel and engine build times;
+2. kernel vs plain: ``sort4`` on the card against ``sort4_reference``
+   (torch.sort) at 2^10..2^22 on three key shapes, exact equality, and
+   both times at 2^20 (CUDA events, median of 7). The sizes include
+   every bucket the slice sorts (2^15..2^21 at batch 2^18);
+3. pass: ``get_pipeline("conversion", n=2^20)`` and ``dedup_pass_light``
+   on the card against the same inputs through the port on the CPU,
+   exact equality, and the pass times on the card;
+4. slice: a 2^23-point LiDAR-like cloud (``bench.synth_cloud``) written
+   to PLY, converted by the port's CLI with ``--device-native`` and by
+   the C++ host engine (``--native``) at batch 2^18, in subprocesses; the
+   two stores must be byte-identical, the sort kernel must have run, and
+   every length it sorted must be one that phase 2 checked.
+
+Then the card's ``nvidia-smi`` name and power limit, the kernels' JSON
+line, and the last line ``{"ok": true, "device": {...}}``. Any failed
+phase raises and exits non-zero before that line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+BATCH = 1 << 18
+CLOUD_POINTS = 1 << 23
+SORT_SIZES = (10, 15, 16, 17, 18, 19, 20, 21, 22)
+TIMED_LOG_N = 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = 7) -> float:
+    """Median device time of ``fn()`` in ms over ``reps`` timed runs."""
+    import torch
+
+    fn()  # warm-up
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def sort_keys(kind: str, n: int, rng):
+    import numpy as np
+
+    arrival = np.arange(n, dtype=np.int32)
+    if kind == "full_range":
+        cols = [rng.integers(-(2**31), 2**31, n, dtype=np.int64)
+                .astype(np.int32) for _ in range(3)]
+        cols[0][:4] = [2**31 - 1, -(2**31), 0, -1]
+    elif kind == "duplicates":
+        cols = [rng.integers(0, 4, n).astype(np.int32) for _ in range(3)]
+    else:  # dedup_shaped: clamped hashes, padding rows at i32::MAX
+        cols = [
+            rng.integers(0, 2**31 - 1, n).astype(np.int32),
+            rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32),
+            rng.integers(0, 2**31 - 1, n).astype(np.int32),
+        ]
+        pad = n // 8
+        cols[0][-pad:] = 2**31 - 1
+        cols[1][-pad:] = 0
+        cols[2][-pad:] = 2**31 - 1
+    return cols + [arrival]
+
+
+def max_abs_err(got, ref) -> int:
+    return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+
+
+def phase_kernel(torch, np, sort) -> dict:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    checked, worst = [], 0
+    for log_n in SORT_SIZES:
+        for kind in ("full_range", "duplicates", "dedup_shaped"):
+            cols = [torch.from_numpy(c).to(dev)
+                    for c in sort_keys(kind, 1 << log_n, rng)]
+            before = sort.launches
+            got = sort.sort4(*cols)
+            torch.cuda.synchronize()
+            if sort.launches != before + 1:
+                raise RuntimeError("sort4 did not count its launch")
+            ref = sort.sort4_reference(*cols)
+            err = max_abs_err(got, ref)
+            worst = max(worst, err)
+            if err != 0:
+                raise AssertionError(f"sort4 != plain at 2^{log_n} {kind}")
+            checked.append(f"2^{log_n}:{kind}")
+    cols = [torch.from_numpy(c).to(dev)
+            for c in sort_keys("dedup_shaped", 1 << TIMED_LOG_N, rng)]
+    # alternate plain, kernel, kernel, plain on one card
+    p1 = cuda_ms(lambda: sort.sort4_reference(*cols))
+    k1 = cuda_ms(lambda: sort.sort4(*cols))
+    k2 = cuda_ms(lambda: sort.sort4(*cols))
+    p2 = cuda_ms(lambda: sort.sort4_reference(*cols))
+    result = {
+        "phase": "kernel_vs_plain", "ok": True, "checked": checked,
+        "max_abs_err": worst, "n_timed": 1 << TIMED_LOG_N,
+        "sort4_ms": [k1, k2], "plain_ms": [p1, p2],
+    }
+    emit(result)
+    return result
+
+
+def phase_pass(torch, np, dedup, get_pipeline) -> dict:
+    from bench import synth_cloud
+    from point_cloud_tpu.core.metadata import MetadataConfig
+
+    n = 1 << 20
+    fn, args = get_pipeline("conversion", n=n, seed=0, device="cuda")
+    cfn, cargs = get_pipeline("conversion", n=n, seed=0, device="cpu")
+    got = [o.cpu() for o in fn(*args)]
+    ref = cfn(*cargs)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        same = (torch.equal(g.view(torch.int32), r.view(torch.int32))
+                if g.dtype == torch.float32 else torch.equal(g, r))
+        if not same:
+            raise AssertionError(f"conversion pipeline output {i}: cuda != cpu")
+    full_ms = cuda_ms(lambda: fn(*args), reps=5)
+
+    config = MetadataConfig()
+    cs = config.cell_size(0)
+    pos = synth_cloud(n, seed=1)
+    valid = np.ones(n, bool)
+    dargs = dedup.pass_args(pos, valid, cs, config.sub_cell_size(cs), "cuda")
+    hargs = dedup.pass_args(pos, valid, cs, config.sub_cell_size(cs), "cpu")
+    packed = dedup.dedup_pass_light(*dargs).cpu()
+    if not torch.equal(packed, dedup.dedup_pass_light(*hargs)):
+        raise AssertionError("dedup_pass_light: cuda != cpu")
+    light_ms = cuda_ms(lambda: dedup.dedup_pass_light(*dargs), reps=5)
+    result = {
+        "phase": "pass", "ok": True, "n": n,
+        "conversion_pipeline_ms": full_ms, "dedup_pass_light_ms": light_ms,
+        "winners": int(((packed >> 30) & 1).sum()),
+        "suspects": int(((packed >> 29) & 1).sum()),
+    }
+    emit(result)
+    return result
+
+
+def run_cli(flag: str, src: Path, out: Path) -> dict:
+    cmd = [sys.executable, "-m", "point_cloud_tpu_torch.convert.cli", flag,
+           "--batch-size", str(BATCH), "--profile", "-o", str(out),
+           "-f", str(src)]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0 or "Failed converting" in proc.stderr:
+        raise RuntimeError(f"{flag} conversion failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def store_files(root: Path) -> dict:
+    return {str(p.relative_to(root)): p for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+def phase_slice(np, checked_lengths) -> dict:
+    import filecmp
+
+    from bench import synth_cloud
+    from point_cloud_tpu.core.point import PointBatch
+    from point_cloud_tpu.io.ply import write_ply
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(3)
+        src = tmp / "cloud.ply"
+        write_ply(src, PointBatch(
+            synth_cloud(CLOUD_POINTS, seed=0),
+            rng.integers(0, 256, (CLOUD_POINTS, 4), dtype=np.uint8),
+        ))
+        port = run_cli("--device-native", src, tmp / "port")
+        host = run_cli("--native", src, tmp / "host")
+        a, b = store_files(tmp / "port"), store_files(tmp / "host")
+        if not a or set(a) != set(b):
+            raise AssertionError("store file sets differ")
+        bad = [k for k in a if not filecmp.cmp(a[k], b[k], shallow=False)]
+        if bad:
+            raise AssertionError(f"{len(bad)} store files differ: {bad[:5]}")
+        # counted by the --device-native subprocess itself, from zero at
+        # its start: the main path's launches and no others
+        launches = port["launches"]["sort4"]
+        if launches <= 0:
+            raise AssertionError("the --device-native run launched no sort4")
+        by_n = {int(n): c for n, c in port["launches_by_n"]["sort4"].items()}
+        unchecked = sorted(n for n in by_n if n not in checked_lengths)
+        if unchecked:
+            raise AssertionError(f"the slice sorted lengths {unchecked} "
+                                 "that phase 2 did not check")
+        result = {
+            "phase": "slice", "ok": True, "points": CLOUD_POINTS,
+            "batch_size": BATCH, "store_files": len(a),
+            "byte_identical": True, "sort4_launches": launches,
+            "sort4_launches_by_n": by_n,
+            "device_native_s": port["convert_s"], "native_s": host["convert_s"],
+            "device_native_mpts_s": CLOUD_POINTS / port["convert_s"] / 1e6,
+            "native_mpts_s": CLOUD_POINTS / host["convert_s"] / 1e6,
+        }
+    emit(result)
+    return result
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from point_cloud_tpu_torch.models import get_pipeline
+    from point_cloud_tpu_torch.ops import dedup, runtime, sort
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    runtime.load_kernels()
+    t1 = time.perf_counter()
+    # the reference's C++ engine (g++, ~20 s) builds here, outside the
+    # timed conversions of phase 4
+    from point_cloud_tpu.native import hex_lockstep_ok
+
+    if not hex_lockstep_ok():
+        raise RuntimeError("C++ engine unavailable or not in IEEE lockstep")
+    emit({
+        "phase": "environment", "ok": True, "nvidia_smi": smi,
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "python": sys.version.split()[0],
+        "kernel_build_s": runtime.build_info["seconds"],
+        "kernel_load_s": t1 - t0,
+        "engine_build_s": time.perf_counter() - t1,
+    })
+
+    kernel = phase_kernel(torch, np, sort)
+    phase_pass(torch, np, dedup, get_pipeline)
+    sliced = phase_slice(np, {1 << log_n for log_n in SORT_SIZES})
+    if "jax" in sys.modules:
+        raise AssertionError("the port pulled jax in")
+
+    print(smi)
+    emit({"kernels": [{
+        "name": "sort4", "route": "cuda",
+        "source": "point_cloud_tpu_torch/csrc/sort4.cu",
+        "replaces": "point_cloud_tpu/ops/sort_pallas.py:220",
+        "launches": sliced["sort4_launches"],
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": statistics.median(kernel["sort4_ms"]),
+        "plain_ms": statistics.median(kernel["plain_ms"]),
+    }]})
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,105 @@
+"""Device choice and the lazy CUDA build (counterpart of ops/runtime.py).
+
+The reference's runtime module tunes JAX's compilation cache and probes a
+remote TPU's health; neither exists here. What the port needs instead:
+
+- :func:`resolve_device` — an explicit device. Asking for ``"cuda"``
+  without a card raises: the main path never drops to the CPU by itself;
+  the CPU is used only when a caller passes ``device="cpu"``.
+- :func:`load_kernels` — builds ``csrc/*.cu`` with nvcc into a shared
+  library with a plain C interface (``sm_90a``), cached in ``_build/`` by
+  a hash of the sources and flags, and loads it with ctypes. The build
+  runs at first use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+_CSRC = _PKG_DIR / "csrc"
+_BUILD_DIR = _PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}  # path, seconds (0.0 when cached)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises if CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain versions explicitly"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME); cannot build csrc/")
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_kernels():
+    """The ctypes handle of the built kernel library (builds on first use)."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        lib_path = _BUILD_DIR / f"libpct_kernels_{_digest(sources)}.so"
+        seconds = 0.0
+        if not lib_path.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                *[str(s) for s in sources],
+            ]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+                )
+            os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+        lib = ctypes.CDLL(str(lib_path))
+        lib.pc_sort4.restype = ctypes.c_int
+        lib.pc_sort4.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        build_info.update(path=str(lib_path), seconds=seconds)
+        _lib = lib
+        return _lib

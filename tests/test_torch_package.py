@@ -1,0 +1,127 @@
+"""Package-level checks of the port: no jax import, explicit devices, the
+CLI's backend flags, and the ``conversion`` pipeline against the
+reference's on the same inputs."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax():
+    """In a fresh process (tests/conftest.py itself imports jax)."""
+    code = (
+        "import sys\n"
+        "import point_cloud_tpu_torch.convert.cli, point_cloud_tpu_torch.models\n"
+        "import point_cloud_tpu_torch.convert.native_device\n"
+        "import point_cloud_tpu_torch.ops.dedup, point_cloud_tpu_torch.ops.sort\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'jax'))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_resolve_device_is_explicit():
+    from point_cloud_tpu_torch.ops.runtime import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+
+
+@pytest.mark.parametrize("flags", [["--device"], ["--mesh", "2"],
+                                   ["--multihost"]])
+def test_cli_unported_backends_exit_nonzero(tmp_path, flags, caplog):
+    from point_cloud_tpu_torch.convert import cli
+
+    rc = cli.main([*flags, "-o", str(tmp_path / "s"), "-f", "x.ply"])
+    assert rc != 0
+    assert "not ported yet (ROADMAP.md)" in caplog.text
+    assert not (tmp_path / "s").exists()
+
+
+def test_cli_device_native_needs_a_card(tmp_path):
+    from point_cloud_tpu_torch.convert import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the CPU-only refusal")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--device-native", "-o", str(tmp_path / "s"),
+                  "-f", str(tmp_path / "x.ply")])
+    assert not (tmp_path / "s").exists()
+
+
+def test_cli_native_matches_reference_cli(tmp_path, capsys):
+    """--native goes to the reference's C++ engine: the same store as the
+    reference CLI, and --profile ends stdout with the JSON summary."""
+    from point_cloud_tpu.convert import cli as ref_cli
+    from point_cloud_tpu.core.point import PointBatch
+    from point_cloud_tpu.io.ply import write_ply
+    from point_cloud_tpu.native import hex_lockstep_ok
+    from point_cloud_tpu_torch.convert import cli
+
+    if not hex_lockstep_ok():
+        pytest.skip("no C++ toolchain for the reference engine")
+    rng = np.random.default_rng(5)
+    src = tmp_path / "cloud.ply"
+    write_ply(src, PointBatch(
+        rng.uniform(-50, 50, (6000, 3)).astype(np.float32),
+        rng.integers(0, 256, (6000, 4)).astype(np.uint8),
+    ))
+    common = ["--batch-size", "2000", "-f", str(src)]
+    assert ref_cli.main(["--native", "-o", str(tmp_path / "ref"), *common]) == 0
+    capsys.readouterr()
+    assert cli.main(["--native", "--profile", "-o", str(tmp_path / "port"),
+                     *common]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["points"] == 6000 and summary["convert_s"] > 0
+    assert set(summary["launches"]) == {"sort4"}
+    assert set(summary["launches_by_n"]) == {"sort4"}
+    files = sorted(p.relative_to(tmp_path / "ref")
+                   for p in (tmp_path / "ref").rglob("*") if p.is_file())
+    assert files
+    for rel in files:
+        assert ((tmp_path / "port" / rel).read_bytes()
+                == (tmp_path / "ref" / rel).read_bytes())
+
+
+def test_conversion_pipeline_matches_reference():
+    """get_pipeline("conversion") runs the port's full dedup pass on the
+    reference's inputs; the per-row keys and flags match the JAX pass."""
+    from point_cloud_tpu.models import get_pipeline as ref_pipeline
+    from point_cloud_tpu_torch.models import get_pipeline
+
+    n = 1 << 15
+    fn, args = get_pipeline("conversion", n=n, seed=3, device="cpu")
+    ref_fn, ref_args = ref_pipeline("conversion", n=n, seed=3)
+    assert np.array_equal(args[0].numpy(), np.asarray(ref_args[0]))
+    for a, r in zip(args[2:], ref_args[2:]):
+        assert a.item() == float(np.asarray(r))
+    got = [o.numpy() for o in fn(*args)]
+    ref = [np.asarray(o) for o in ref_fn(*ref_args)]
+    assert len(got) == len(ref) == 8
+    # sparse uniform cloud: no near-tie runs, so every output but the
+    # (fma-sensitive, docs/PERF_TPU_V5E.md) distance column is exact
+    for i in (0, 1, 2, 3, 4, 6, 7):
+        assert np.array_equal(got[i], ref[i]), i
+    assert got[0].shape == (n,) and got[3].shape == (n, 3)
+
+
+def test_frame_pipeline_not_ported():
+    from point_cloud_tpu_torch.models import get_pipeline
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_pipeline("frame", device="cpu")
+    with pytest.raises(KeyError):
+        get_pipeline("nope", device="cpu")
