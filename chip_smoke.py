@@ -9,9 +9,11 @@ use. Imports no JAX. Phases, one JSON line each:
 
 1. environment: torch/CUDA versions, the kernel and engine build times;
 2. kernel vs plain: ``sort4`` on the card against ``sort4_reference``
-   (torch.sort) at 2^10..2^22 on three key shapes, exact equality, and
-   both times at 2^20 (CUDA events, median of 7). The sizes include
-   every bucket the slice sorts (2^15..2^21 at batch 2^18);
+   (torch.sort) at every size 2^10..2^22 on eight key shapes (three
+   random ones and five that break merge sorts), exact equality, and
+   both times at 2^17, 2^18 and 2^20, the lengths the slice sorts most
+   (CUDA events, median of 7). The sizes include every bucket the slice
+   sorts (2^15..2^21 at batch 2^18);
 3. pass: ``get_pipeline("conversion", n=2^20)`` and ``dedup_pass_light``
    on the card against the same inputs through the port on the CPU,
    exact equality, and the pass times on the card;
@@ -40,8 +42,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BATCH = 1 << 18
 CLOUD_POINTS = 1 << 23
-SORT_SIZES = (10, 15, 16, 17, 18, 19, 20, 21, 22)
-TIMED_LOG_N = 20
+SORT_SIZES = tuple(range(10, 23))
+TIMED_LOG_N = (17, 18, 20)
+MAIN_LOG_N = 18  # the slice's dominant sort length (102 of 120 sorts)
+TILE_ROWS = 2048  # rows one block of the kernel sorts (csrc/sort4.cu)
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+KEY_SHAPES = ("full_range", "duplicates", "dedup_shaped", "all_equal",
+              "presorted", "reversed", "long_runs", "extremes")
 
 
 def emit(obj) -> None:
@@ -69,7 +76,23 @@ def sort_keys(kind: str, n: int, rng):
     import numpy as np
 
     arrival = np.arange(n, dtype=np.int32)
-    if kind == "full_range":
+    if kind == "extremes":  # MIN and MAX in every column, k4 too
+        choices = np.array([I32_MIN, I32_MIN + 1, -1, 0, I32_MAX - 1, I32_MAX],
+                           np.int32)
+        return [rng.choice(choices, n) for _ in range(4)]
+    if kind in ("presorted", "reversed"):
+        cols = [rng.integers(-8, 8, n).astype(np.int32) for _ in range(3)]
+        order = np.lexsort(cols[::-1])
+        cols = [c[order] for c in cols] + [arrival]
+        return [c[::-1].copy() for c in cols] if kind == "reversed" else cols
+    if kind == "all_equal":
+        cols = [np.full(n, v, np.int32) for v in (7, -3, I32_MAX)]
+    elif kind == "long_runs":  # k1 runs of 1.5 tiles cross tile and merge bounds
+        run = 3 * TILE_ROWS // 2
+        k1 = np.repeat(rng.integers(-50, 50, -(-n // run)), run)[:n]
+        cols = [k1.astype(np.int32), rng.integers(0, 4, n).astype(np.int32),
+                rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)]
+    elif kind == "full_range":
         cols = [rng.integers(-(2**31), 2**31, n, dtype=np.int64)
                 .astype(np.int32) for _ in range(3)]
         cols[0][:4] = [2**31 - 1, -(2**31), 0, -1]
@@ -97,7 +120,7 @@ def phase_kernel(torch, np, sort) -> dict:
     rng = np.random.default_rng(0)
     checked, worst = [], 0
     for log_n in SORT_SIZES:
-        for kind in ("full_range", "duplicates", "dedup_shaped"):
+        for kind in KEY_SHAPES:
             cols = [torch.from_numpy(c).to(dev)
                     for c in sort_keys(kind, 1 << log_n, rng)]
             before = sort.launches
@@ -111,17 +134,21 @@ def phase_kernel(torch, np, sort) -> dict:
             if err != 0:
                 raise AssertionError(f"sort4 != plain at 2^{log_n} {kind}")
             checked.append(f"2^{log_n}:{kind}")
-    cols = [torch.from_numpy(c).to(dev)
-            for c in sort_keys("dedup_shaped", 1 << TIMED_LOG_N, rng)]
-    # alternate plain, kernel, kernel, plain on one card
-    p1 = cuda_ms(lambda: sort.sort4_reference(*cols))
-    k1 = cuda_ms(lambda: sort.sort4(*cols))
-    k2 = cuda_ms(lambda: sort.sort4(*cols))
-    p2 = cuda_ms(lambda: sort.sort4_reference(*cols))
+    sort_ms, plain_ms = {}, {}
+    for log_n in TIMED_LOG_N:
+        cols = [torch.from_numpy(c).to(dev)
+                for c in sort_keys("dedup_shaped", 1 << log_n, rng)]
+        # alternate plain, kernel, kernel, plain on one card
+        p1 = cuda_ms(lambda: sort.sort4_reference(*cols))
+        k1 = cuda_ms(lambda: sort.sort4(*cols))
+        k2 = cuda_ms(lambda: sort.sort4(*cols))
+        p2 = cuda_ms(lambda: sort.sort4_reference(*cols))
+        sort_ms[1 << log_n] = [k1, k2]
+        plain_ms[1 << log_n] = [p1, p2]
     result = {
         "phase": "kernel_vs_plain", "ok": True, "checked": checked,
-        "max_abs_err": worst, "n_timed": 1 << TIMED_LOG_N,
-        "sort4_ms": [k1, k2], "plain_ms": [p1, p2],
+        "max_abs_err": worst, "sort_ms_by_n": sort_ms,
+        "plain_ms_by_n": plain_ms,
     }
     emit(result)
     return result
@@ -268,14 +295,20 @@ def main() -> int:
         raise AssertionError("the port pulled jax in")
 
     print(smi)
+    main_n = 1 << MAIN_LOG_N
     emit({"kernels": [{
         "name": "sort4", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/sort4.cu",
         "replaces": "point_cloud_tpu/ops/sort_pallas.py:220",
         "launches": sliced["sort4_launches"],
         "max_abs_err": kernel["max_abs_err"],
-        "ms": statistics.median(kernel["sort4_ms"]),
-        "plain_ms": statistics.median(kernel["plain_ms"]),
+        "ms": statistics.median(kernel["sort_ms_by_n"][main_n]),
+        "plain_ms": statistics.median(kernel["plain_ms_by_n"][main_n]),
+        "n": main_n,
+        "ms_by_n": {n: statistics.median(t)
+                    for n, t in kernel["sort_ms_by_n"].items()},
+        "plain_ms_by_n": {n: statistics.median(t)
+                          for n, t in kernel["plain_ms_by_n"].items()},
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,178 +1,300 @@
-// sort4.cu — four-column lexicographic bitonic sort for Hopper (sm_90a).
+// sort4.cu — four-column lexicographic merge sort for Hopper (sm_90a).
 //
 // Replaces the Pallas tiled sort of point_cloud_tpu/ops/sort_pallas.py:
 //   _call_sort_tiles (:217-228) with its chunk kernels
-//     _make_sort_chunk_kernel (:145-170)     -> sort4_block
+//     _make_sort_chunk_kernel (:145-170)        -> sort4_tile
 //   _call_merge_pairs / _merge_pair_kernel (:178-249)
-//     (its distance-2^15 exchange)            -> sort4_global_step
-//     (its in-tile substages)                 -> sort4_block_merge
-//   _cross_exchange (:252-269, plain XLA)     -> sort4_global_step
+//     and _cross_exchange (:252-269, plain XLA) -> sort4_merge
 //   _transpose_blocks / _to_tiles / _from_tiles (:272-309): no kernel;
 //     the coalesced loads into shared memory and the stores back do the
 //     relayout the TPU needed for its sublane-major tiles.
 //
 // Contract (pallas_sort4, :340-352): sort four equal-length int32 columns
-// ascending, lexicographically; n is a power of two >= 1024. Column 4 is
-// unique (the dedup arrival iota), so the order is total and the result
-// equals np.lexsort((k4, k3, k2, k1)). The host wrapper checks shapes.
+// ascending, lexicographically as signed values; n is a power of two in
+// [2^10, 2^30]. The result equals np.lexsort((k4, k3, k2, k1)) for any
+// input: rows that compare equal are equal in all four columns, so their
+// order cannot show. The host wrapper checks shapes.
 //
-// Design: the bitonic network of ops/bitonic.py, regrouped for an SM.
-// Stage s (1..log n) merges runs of 2^s rows; row i of stage s sorts
-// ascending iff bit s of i is 0, taken from the GLOBAL row index, so a
-// tile sorted by one block alternates direction with its neighbour and
-// the next stage sees bitonic runs. A block holds T = 2048 rows (4 x 8 KB
-// of shared memory) and runs every substage of distance < T in shared
-// memory; each substage of distance >= T is one launch of a grid with
-// one thread per pair.
+// Design: a merge sort shaped for an SM.
+// - A row is two u64 keys, (k1^2^31)<<32 | (k2^2^31) and the same for
+//   (k3, k4). Flipping the sign bit keeps the signed order, so a compare
+//   is two 64-bit compares instead of four 32-bit ones.
+// - sort4_tile: a block of 256 threads sorts kRows = 2048 rows, 8 per
+//   thread. Each thread sorts its 8 rows in registers (an unrolled
+//   odd-even transposition network: no shared memory, no sync); then 8
+//   rounds of merge-path merges through shared memory double the sorted
+//   runs from 8 rows to 2048, two syncs a round (CUB's BlockMergeSort).
+// - sort4_merge: one launch per pass merges the runs of width W = 2048,
+//   4096, ..., n/2 in pairs. Each block writes 2048 consecutive output
+//   rows. Two warps find the block's start and end in both runs by a
+//   32-way search of the merge-path diagonal in global memory (a round
+//   per 5 bits of W); the block stages the two slices in shared memory;
+//   each thread finds its own diagonal there and merges 8 rows serially.
+//   Ties take the left run, so no row is lost or doubled.
+// - Shared memory holds rows at slot i + i/8: one 16-byte gap every 8
+//   rows keeps both the per-thread (8 consecutive rows) and the per-warp
+//   (32 consecutive rows) accesses free of bank conflicts.
+// - Passes ping-pong between (o1..o4) and the caller's scratch (t1..t4);
+//   the tile sort picks its output by the parity of the pass count, so
+//   the last pass lands in (o1..o4). The kernels allocate nothing.
 //
-// What bounds it: bytes. A global step reads 16 B and writes up to 16 B
-// per row for four compares; a block pass moves the same 32 B per row
-// for up to 11 substages. At n = 2^20: 1 block sort + 45 global steps
-// + 9 block merges = 55 launches, ~1.8 GB of traffic (the 16 MB working
-// set stays in the 50 MB L2). Speed (radix, merge paths, fewer passes)
-// is later work.
+// Launches: 1 + log2(n / 2048): 8 at 2^18, 10 at 2^20, each reading and
+// writing 16 B per row (~336 MB in all at 2^20, held in the 50 MB L2 up
+// to 2^21).
+//
+// What bounds it: latency, not bytes. At 2^18 (128 blocks, one per SM)
+// the tile sort takes ~25 us for 4 MB, a chain of ~120 dependent
+// shared-memory steps (8 binary searches and 8 serial merges) with 8
+// warps an SM to hide them; at 2^20 (4 blocks an SM) it sorts 4x the rows
+// in ~2x the time. A merge pass at 2^18 takes ~7 us for 8 MB of L2
+// traffic: 4 rounds of dependent global loads in the split search, then
+// the staging load, the merge and the store (H100, PERF.md, PR 2).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileLog = 11;  // 2048 rows per block
+// One block shape for both kernels, chosen by measurement (PERF.md, PR 2)
+constexpr int kThreads = 256;
+constexpr int kItems = 8;  // rows per thread
+constexpr int kRows = kThreads * kItems;
 
-struct Row {
-  int a, b, c, d;
-};
+using Key = ulonglong2;  // x = (k1, k2), y = (k3, k4), sign bits flipped
 
-__device__ __forceinline__ bool row_gt(const Row& x, const Row& y) {
-  if (x.a != y.a) return x.a > y.a;
-  if (x.b != y.b) return x.b > y.b;
-  if (x.c != y.c) return x.c > y.c;
-  return x.d > y.d;
+__device__ __forceinline__ Key make_key(int a, int b, int c, int d) {
+  const unsigned s = 0x80000000u;
+  return make_ulonglong2(
+      (static_cast<unsigned long long>(static_cast<unsigned>(a) ^ s) << 32) |
+          (static_cast<unsigned>(b) ^ s),
+      (static_cast<unsigned long long>(static_cast<unsigned>(c) ^ s) << 32) |
+          (static_cast<unsigned>(d) ^ s));
 }
 
-// Index of the low row of compare-exchange pair p at distance 2^j.
-__device__ __forceinline__ unsigned pair_lo(unsigned p, int j) {
-  return ((p >> j) << (j + 1)) | (p & ((1u << j) - 1u));
+__device__ __forceinline__ Key load_key(const int* c1, const int* c2,
+                                        const int* c3, const int* c4,
+                                        long long r) {
+  return make_key(__ldg(c1 + r), __ldg(c2 + r), __ldg(c3 + r), __ldg(c4 + r));
 }
 
-// Substages j = j_hi..0 of stage s on a tile held in shared memory.
-// `base` is the tile's first global row (the direction bit is global).
-__device__ void tile_substages(int* s1, int* s2, int* s3, int* s4,
-                               int tile_log, unsigned base, int s,
-                               int j_hi) {
-  const unsigned half = 1u << (tile_log - 1);
-  for (int j = j_hi; j >= 0; --j) {
-    for (unsigned p = threadIdx.x; p < half; p += blockDim.x) {
-      const unsigned lo = pair_lo(p, j);
-      const unsigned hi = lo + (1u << j);
-      const bool up = (((base + lo) >> s) & 1u) == 0u;
-      const Row x{s1[lo], s2[lo], s3[lo], s4[lo]};
-      const Row y{s1[hi], s2[hi], s3[hi], s4[hi]};
-      if (row_gt(x, y) == up) {
-        s1[lo] = y.a; s2[lo] = y.b; s3[lo] = y.c; s4[lo] = y.d;
-        s1[hi] = x.a; s2[hi] = x.b; s3[hi] = x.c; s4[hi] = x.d;
+__device__ __forceinline__ void store_key(int* o1, int* o2, int* o3, int* o4,
+                                          long long r, const Key& k) {
+  const unsigned s = 0x80000000u;
+  o1[r] = static_cast<int>(static_cast<unsigned>(k.x >> 32) ^ s);
+  o2[r] = static_cast<int>(static_cast<unsigned>(k.x) ^ s);
+  o3[r] = static_cast<int>(static_cast<unsigned>(k.y >> 32) ^ s);
+  o4[r] = static_cast<int>(static_cast<unsigned>(k.y) ^ s);
+}
+
+__device__ __forceinline__ bool key_less(const Key& p, const Key& q) {
+  return p.x < q.x || (p.x == q.x && p.y < q.y);
+}
+
+__device__ __forceinline__ int slot(int i) { return i + (i >> 3); }
+
+__device__ __forceinline__ void sort_registers(Key (&k)[kItems]) {
+#pragma unroll
+  for (int round = 0; round < kItems; ++round) {
+#pragma unroll
+    for (int i = round & 1; i + 1 < kItems; i += 2) {
+      if (key_less(k[i + 1], k[i])) {
+        const Key t = k[i];
+        k[i] = k[i + 1];
+        k[i + 1] = t;
       }
     }
-    __syncthreads();
   }
 }
 
-__device__ void load_tile(int* smem, const int* c1, const int* c2,
-                          const int* c3, const int* c4, int tile,
-                          unsigned base) {
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    smem[i] = c1[base + i];
-    smem[tile + i] = c2[base + i];
-    smem[2 * tile + i] = c3[base + i];
-    smem[3 * tile + i] = c4[base + i];
+// Shared rows [a, a + a_len) and [b, b + b_len) are two sorted runs: how
+// many of the first `diag` rows of their merge come from the first.
+__device__ __forceinline__ int merge_path(const Key* s, int a, int a_len,
+                                          int b, int b_len, int diag) {
+  int lo = max(0, diag - b_len);
+  int hi = min(diag, a_len);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (key_less(s[slot(b + diag - 1 - mid)], s[slot(a + mid)]))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// The next kItems rows of the merge of shared runs [a, a_end) and
+// [b, b_end); ties take the first run. Reads stay inside the kRows rows.
+__device__ __forceinline__ void serial_merge(const Key* s, int a, int a_end,
+                                             int b, int b_end,
+                                             Key (&out)[kItems]) {
+  constexpr int last = kRows - 1;
+  Key ka = s[slot(min(a, last))];
+  Key kb = s[slot(min(b, last))];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const bool take_b = b < b_end && (a >= a_end || key_less(kb, ka));
+    out[j] = take_b ? kb : ka;
+    if (take_b)
+      kb = s[slot(min(++b, last))];
+    else
+      ka = s[slot(min(++a, last))];
+  }
+}
+
+__device__ __forceinline__ void store_blocked(Key* s, const Key (&k)[kItems]) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) s[slot(threadIdx.x * kItems + j)] = k[j];
+}
+
+// How many of the first d rows of merge(A, B) come from A, where A is rows
+// [pair, pair + w) and B rows [pair + w, pair + 2w) of the columns; run by
+// one whole warp. Each round probes 32 points of the diagonal: the lanes
+// where A[p] <= B[d-1-p] form a prefix, and the answer lies between the
+// last of them and the next probe.
+__device__ long long warp_split(const int* c1, const int* c2, const int* c3,
+                                const int* c4, long long pair, long long w,
+                                long long d) {
+  const long long lane = threadIdx.x & 31;
+  long long lo = d > w ? d - w : 0;
+  long long hi = d < w ? d : w;
+  while (lo < hi) {
+    const long long step = (hi - lo + 31) >> 5;
+    const long long p = lo + (lane + 1) * step - 1;
+    bool a_gt_b = true;  // beyond hi: the answer is at most hi
+    if (p < hi)
+      a_gt_b = key_less(load_key(c1, c2, c3, c4, pair + w + d - 1 - p),
+                        load_key(c1, c2, c3, c4, pair + p));
+    const long long c = __popc(__ballot_sync(0xffffffffu, !a_gt_b));
+    hi = min(hi, lo + (c + 1) * step - 1);
+    lo += c * step;
+  }
+  return lo;
+}
+
+// Sorts each run of kRows rows: (k1..k4) -> (o1..o4). With n below
+// kRows one block sorts `rows` = n rows; the rest of its tile holds
+// all-ones keys, which sort last and are not stored.
+__global__ void __launch_bounds__(kThreads)
+    sort4_tile(const int* __restrict__ k1, const int* __restrict__ k2,
+               const int* __restrict__ k3, const int* __restrict__ k4,
+               int* __restrict__ o1, int* __restrict__ o2,
+               int* __restrict__ o3, int* __restrict__ o4, int rows) {
+  __shared__ Key s[kRows + kRows / 8];  // 36 KB
+  const long long base = static_cast<long long>(blockIdx.x) * kRows;
+  Key k[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    k[j] = i < rows ? load_key(k1, k2, k3, k4, base + i)
+                    : make_ulonglong2(~0ull, ~0ull);
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+    s[slot(j * kThreads + threadIdx.x)] = k[j];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+    k[j] = s[slot(threadIdx.x * kItems + j)];
+  sort_registers(k);
+  // each round merges pairs of sorted runs held by width / 2 threads each
+  for (int width = 2; width <= kThreads; width *= 2) {
+    __syncthreads();
+    store_blocked(s, k);
+    __syncthreads();
+    const int half = kItems * width / 2;
+    const int a = (threadIdx.x & ~(width - 1)) * kItems;
+    const int diag = (threadIdx.x & (width - 1)) * kItems;
+    const int from_a = merge_path(s, a, half, a + half, half, diag);
+    serial_merge(s, a + from_a, a + half, a + half + diag - from_a,
+                 a + 2 * half, k);
   }
   __syncthreads();
-}
-
-__device__ void store_tile(const int* smem, int* c1, int* c2, int* c3,
-                           int* c4, int tile, unsigned base) {
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    c1[base + i] = smem[i];
-    c2[base + i] = smem[tile + i];
-    c3[base + i] = smem[2 * tile + i];
-    c4[base + i] = smem[3 * tile + i];
+  store_blocked(s, k);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    if (i < rows) store_key(o1, o2, o3, o4, base + i, s[slot(i)]);
   }
 }
 
-// Stages 1..tile_log of every tile: in -> out.
-__global__ void sort4_block(const int* __restrict__ k1,
-                            const int* __restrict__ k2,
-                            const int* __restrict__ k3,
-                            const int* __restrict__ k4, int* o1, int* o2,
-                            int* o3, int* o4, int tile_log) {
-  extern __shared__ int smem[];
-  const int tile = 1 << tile_log;
-  const unsigned base = blockIdx.x * (unsigned)tile;
-  load_tile(smem, k1, k2, k3, k4, tile, base);
-  for (int s = 1; s <= tile_log; ++s)
-    tile_substages(smem, smem + tile, smem + 2 * tile, smem + 3 * tile,
-                   tile_log, base, s, s - 1);
-  store_tile(smem, o1, o2, o3, o4, tile, base);
-}
-
-// Substages of distance < tile of a stage s > tile_log, in place.
-__global__ void sort4_block_merge(int* o1, int* o2, int* o3, int* o4,
-                                  int tile_log, int s) {
-  extern __shared__ int smem[];
-  const int tile = 1 << tile_log;
-  const unsigned base = blockIdx.x * (unsigned)tile;
-  load_tile(smem, o1, o2, o3, o4, tile, base);
-  tile_substages(smem, smem + tile, smem + 2 * tile, smem + 3 * tile,
-                 tile_log, base, s, tile_log - 1);
-  store_tile(smem, o1, o2, o3, o4, tile, base);
-}
-
-// One substage at distance 2^j >= tile of stage s, in place.
-__global__ void sort4_global_step(int* o1, int* o2, int* o3, int* o4,
-                                  int j, int s, unsigned n_pairs) {
-  const unsigned p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_pairs) return;
-  const unsigned lo = pair_lo(p, j);
-  const unsigned hi = lo + (1u << j);
-  const bool up = ((lo >> s) & 1u) == 0u;
-  const Row x{o1[lo], o2[lo], o3[lo], o4[lo]};
-  const Row y{o1[hi], o2[hi], o3[hi], o4[hi]};
-  if (row_gt(x, y) == up) {
-    o1[lo] = y.a; o2[lo] = y.b; o3[lo] = y.c; o4[lo] = y.d;
-    o1[hi] = x.a; o2[hi] = x.b; o3[hi] = x.c; o4[hi] = x.d;
+// One merge pass: the sorted runs of width w in (i1..i4), merged in pairs,
+// to (o1..o4). Block b writes output rows [b, b + 1) * kRows.
+__global__ void __launch_bounds__(kThreads)
+    sort4_merge(const int* __restrict__ i1, const int* __restrict__ i2,
+                const int* __restrict__ i3, const int* __restrict__ i4,
+                int* __restrict__ o1, int* __restrict__ o2,
+                int* __restrict__ o3, int* __restrict__ o4, long long w) {
+  __shared__ Key s[kRows + kRows / 8];  // 36 KB
+  __shared__ long long split[2];
+  const long long out0 = static_cast<long long>(blockIdx.x) * kRows;
+  const long long pair = out0 & ~(2 * w - 1);
+  const long long d0 = out0 - pair;
+  if (threadIdx.x < 64) {
+    const int which = threadIdx.x >> 5;
+    const long long from_a =
+        warp_split(i1, i2, i3, i4, pair, w, d0 + which * kRows);
+    if ((threadIdx.x & 31) == 0) split[which] = from_a;
+  }
+  __syncthreads();
+  const int a_len = static_cast<int>(split[1] - split[0]);
+  const long long a_src = pair + split[0];
+  const long long b_src = pair + w + d0 - split[0];
+  Key k[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    k[j] = load_key(i1, i2, i3, i4, i < a_len ? a_src + i : b_src + (i - a_len));
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j)
+    s[slot(j * kThreads + threadIdx.x)] = k[j];
+  __syncthreads();
+  const int diag = threadIdx.x * kItems;
+  const int from_a = merge_path(s, 0, a_len, a_len, kRows - a_len, diag);
+  serial_merge(s, from_a, a_len, a_len + diag - from_a, kRows, k);
+  __syncthreads();
+  store_blocked(s, k);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    store_key(o1, o2, o3, o4, out0 + i, s[slot(i)]);
   }
 }
 
 }  // namespace
 
-// Sort (k1..k4) into (o1..o4) on `stream`. Returns cudaGetLastError()
-// after the launches (0 = all launched); it does not synchronise.
+// Sort (k1..k4) into (o1..o4) on `stream`, with (t1..t4) as scratch of the
+// same length. Returns cudaGetLastError() after each launch (0 = all
+// launched); it does not synchronise.
 extern "C" int pc_sort4(const int* k1, const int* k2, const int* k3,
                         const int* k4, int* o1, int* o2, int* o3, int* o4,
-                        long long n, void* stream_handle) {
+                        int* t1, int* t2, int* t3, int* t4, long long n,
+                        void* stream_handle) {
   if (n < 1024 || (n & (n - 1)) != 0 || n > (1LL << 30))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_handle;
-  int log_n = 0;
-  while ((1LL << log_n) < n) ++log_n;
-  const int tile_log = log_n < kTileLog ? log_n : kTileLog;
-  const int tile = 1 << tile_log;
-  const int threads = tile / 2;
-  const size_t smem = 4 * (size_t)tile * sizeof(int);
-  const unsigned blocks = (unsigned)(n >> tile_log);
-  const unsigned n_pairs = (unsigned)(n / 2);
-  const unsigned step_threads = 256;
-  const unsigned step_blocks = (n_pairs + step_threads - 1) / step_threads;
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  int passes = 0;
+  for (long long w = kRows; w < n; w *= 2) ++passes;
+  int* out[4] = {o1, o2, o3, o4};
+  int* tmp[4] = {t1, t2, t3, t4};
+  int** dst = passes % 2 ? tmp : out;
+  int** src = passes % 2 ? out : tmp;
 
-  sort4_block<<<blocks, threads, smem, stream>>>(k1, k2, k3, k4, o1, o2, o3,
-                                                 o4, tile_log);
+  const int rows = n < kRows ? static_cast<int>(n) : kRows;
+  const unsigned tiles = static_cast<unsigned>(n < kRows ? 1 : n / kRows);
+  sort4_tile<<<tiles, kThreads, 0, stream>>>(
+      k1, k2, k3, k4, dst[0], dst[1], dst[2], dst[3], rows);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  for (int s = tile_log + 1; s <= log_n; ++s) {
-    for (int j = s - 1; j >= tile_log; --j)
-      sort4_global_step<<<step_blocks, step_threads, 0, stream>>>(
-          o1, o2, o3, o4, j, s, n_pairs);
-    sort4_block_merge<<<blocks, threads, smem, stream>>>(o1, o2, o3, o4,
-                                                         tile_log, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (long long w = kRows; w < n; w *= 2) {
+    int** t = src;
+    src = dst;
+    dst = t;
+    sort4_merge<<<static_cast<unsigned>(n / kRows), kThreads, 0, stream>>>(
+        src[0], src[1], src[2], src[3], dst[0], dst[1], dst[2], dst[3], w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return (int)cudaGetLastError();
+  return static_cast<int>(cudaSuccess);
 }

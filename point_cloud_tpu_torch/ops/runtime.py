@@ -97,7 +97,7 @@ def load_kernels():
             os.replace(tmp, lib_path)  # atomic: concurrent builds agree
         lib = ctypes.CDLL(str(lib_path))
         lib.pc_sort4.restype = ctypes.c_int
-        lib.pc_sort4.argtypes = [ctypes.c_void_p] * 8 + [
+        lib.pc_sort4.argtypes = [ctypes.c_void_p] * 12 + [
             ctypes.c_longlong, ctypes.c_void_p,
         ]
         build_info.update(path=str(lib_path), seconds=seconds)

@@ -2,15 +2,16 @@
 
 Counterpart of ``point_cloud_tpu/ops/sort_pallas.py`` (``pallas_sort4``,
 :340-352), whose plain twin in the reference is ``ops/bitonic.py``.
-:func:`sort4` sorts four equal-length int32 columns ascending in
-lexicographic order. Callers pass a unique fourth column (the arrival
-iota), so the order is total and equals ``np.lexsort((k4, k3, k2, k1))``.
+:func:`sort4` sorts four equal-length int32 columns ascending in signed
+lexicographic order; the result equals ``np.lexsort((k4, k3, k2, k1))``
+for any input (rows that compare equal are equal, so stability cannot
+show). The dedup pass passes a unique fourth column, the arrival iota.
 
 - On a CUDA tensor it launches the hand-written kernel in
-  ``csrc/sort4.cu`` (a bitonic network: see the note there) or raises.
+  ``csrc/sort4.cu`` (a merge sort: see the note there) or raises.
   There is no fallback: an input the kernel does not take is an error.
-  The kernel needs a power-of-two length >= 1024; every caller pads to a
-  pow2 bucket >= 2^15.
+  The kernel needs a power-of-two length in [2^10, 2^30]; every caller
+  pads to a pow2 bucket >= 2^15.
 - On a CPU tensor it runs :func:`sort4_reference`, the plain version.
 
 ``launches`` counts the kernel's launches (one per :func:`sort4` call on
@@ -65,16 +66,18 @@ def sort4(k1, k2, k3, k4):
     cols = (k1, k2, k3, k4)
     n = _check_kernel_args(cols)
     lib = load_kernels()
-    outs = [torch.empty_like(c) for c in cols]
+    # the four output columns are the rows of one block, and the passes
+    # ping-pong between it and a scratch block of the same shape
+    out = torch.empty((4, n), dtype=torch.int32, device=device)
+    scratch = torch.empty_like(out)
+    columns = [block.data_ptr() + 4 * n * i for block in (out, scratch)
+               for i in range(4)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.pc_sort4(
-            *(c.data_ptr() for c in cols), *(o.data_ptr() for o in outs),
-            n, stream,
-        )
+        rc = lib.pc_sort4(*(c.data_ptr() for c in cols), *columns, n, stream)
     if rc != 0:
         raise RuntimeError(f"pc_sort4 launch failed: cudaError {rc}")
     with _count_lock:
         launches += 1
         launches_by_n[n] = launches_by_n.get(n, 0) + 1
-    return tuple(outs)
+    return tuple(out)

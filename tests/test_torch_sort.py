@@ -2,9 +2,12 @@
 
 ``sort4_reference`` (what ``sort4`` runs on a CPU tensor) is held exactly
 against the Pallas kernel in interpret mode, as tests/test_sorts.py runs
-it, and against ``np.lexsort``. The CUDA kernel itself is compared with
-``sort4_reference`` only where a card exists (``cuda`` marker; it skips
-here). On the card, without JAX:
+it, and against ``np.lexsort``, on random keys and on the shapes that
+break merge sorts (equal keys, sorted and reversed input, runs longer
+than a kernel tile, i32 extremes in every column). The CUDA kernel itself
+is compared with ``sort4_reference`` only where a card exists (``cuda``
+marker; it skips here), at lengths below, at and above its 2048-row
+tile, with odd and even pass counts. On the card, without JAX:
 ``PCT_TEST_PLATFORM=gpu python -m pytest tests/test_torch_sort.py -m cuda``.
 """
 
@@ -20,10 +23,34 @@ def lexsorted(cols):
     return np.stack([c[order] for c in cols], axis=1)
 
 
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+TILE_ROWS = 2048  # rows one block of the kernel sorts (csrc/sort4.cu)
+
+
 def make_cols(kind, n, seed):
     rng = np.random.default_rng(seed)
     arrival = np.arange(n, dtype=np.int32)
-    if kind == "random":
+    if kind == "extremes":
+        # every column, k4 too, takes i32 MIN and MAX; many rows are equal
+        choices = np.array([I32_MIN, I32_MIN + 1, -1, 0, I32_MAX - 1, I32_MAX],
+                           np.int32)
+        return [rng.choice(choices, n) for _ in range(4)]
+    if kind in ("presorted", "reversed"):
+        cols = [rng.integers(-8, 8, n).astype(np.int32) for _ in range(3)]
+        order = np.lexsort(cols[::-1])
+        cols = [c[order] for c in cols] + [arrival]
+        return [c[::-1].copy() for c in cols] if kind == "reversed" else cols
+    if kind == "all_equal":
+        cols = [np.full(n, v, np.int32) for v in (7, -3, I32_MAX)]
+    elif kind == "long_runs":
+        # k1 constant over runs of 1.5 kernel tiles: runs cross the tile
+        # and merge-block boundaries
+        run = 3 * TILE_ROWS // 2
+        n_runs = -(-n // run)
+        k1 = np.repeat(rng.integers(-50, 50, n_runs), run)[:n].astype(np.int32)
+        cols = [k1, rng.integers(0, 4, n).astype(np.int32),
+                rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)]
+    elif kind == "random":
         cols = [rng.integers(-1000, 1000, n).astype(np.int32)
                 for _ in range(3)]
     elif kind == "duplicates":
@@ -54,23 +81,37 @@ def run_reference(cols):
 
 
 KINDS = ["random", "duplicates", "full_range", "dedup_shaped"]
+# shapes that break merge sorts: equal keys, sorted runs, extremes
+MERGE_KINDS = ["all_equal", "presorted", "reversed", "long_runs", "extremes"]
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("n", [1 << 10, 1 << 16])
-def test_reference_matches_pallas_interpret(kind, n):
+def pallas_input(cols):
+    """``cols`` as the reference takes them: below 2^15 it pads with
+    (MAX, MAX, MAX, 2^30 + i) rows and keeps the first n, so a real row
+    (MAX, MAX, MAX, k4) needs k4 < 2^30 (``pallas_sort4``)."""
+    cols = [c.copy() for c in cols]
+    top = (cols[0] == I32_MAX) & (cols[1] == I32_MAX) & (cols[2] == I32_MAX)
+    cols[3][top & (cols[3] >= 1 << 30)] = 0
+    return cols
+
+
+@pytest.mark.parametrize("n,kind", [
+    *((n, k) for k in KINDS for n in (1 << 10, 1 << 16)),
+    *((1 << 10, k) for k in MERGE_KINDS),  # interpret mode is slow
+])
+def test_reference_matches_pallas_interpret(n, kind):
     import jax.numpy as jnp
 
     from point_cloud_tpu.ops.sort_pallas import pallas_sort4
 
-    cols = make_cols(kind, n, seed=n)
+    cols = pallas_input(make_cols(kind, n, seed=n))
     got = run_reference(cols)
     ref = pallas_sort4(*(jnp.asarray(c) for c in cols), interpret=True)
     ref = np.stack([np.asarray(r) for r in ref], axis=1)
     assert np.array_equal(got, ref)
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + MERGE_KINDS)
 @pytest.mark.parametrize("log_n", [10, 12, 14, 16, 18])
 def test_reference_matches_lexsort(kind, log_n):
     cols = make_cols(kind, 1 << log_n, seed=log_n)
@@ -115,8 +156,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("log_n", [10, 11, 15, 16, 17, 18, 19, 20, 21])
+@pytest.mark.parametrize("kind", KINDS + MERGE_KINDS)
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 15, 16, 17, 18, 19, 20, 21, 22])
 def test_kernel_matches_reference_on_card(cuda_device, kind, log_n):
     cols = [torch.from_numpy(c).to(cuda_device)
             for c in make_cols(kind, 1 << log_n, seed=log_n)]
