@@ -17,21 +17,28 @@ use. Imports no JAX. Phases, one JSON line each:
 3. pass: ``get_pipeline("conversion", n=2^20)`` and ``dedup_pass_light``
    on the card against the same inputs through the port on the CPU,
    exact equality, and the pass times on the card;
-4. slice: a 2^23-point LiDAR-like cloud (``bench.synth_cloud``) written
-   to PLY, converted by the port's CLI with ``--device-native`` and by
-   the C++ host engine (``--native``) at batch 2^18, in subprocesses; the
-   two stores must be byte-identical, the sort kernel must have run, and
-   every length it sorted must be one that phase 2 checked.
+4. slice: a 2^23-point LiDAR-like cloud (the port's ``synth_cloud``)
+   written to PLY and converted by the port's CLI at batch 2^18, in
+   subprocesses, three times: ``--device`` (the Python-cell
+   ``PipelinedConverter``), ``--device-native`` (the C++ merge engine)
+   and ``--native`` (the C++ host engine alone). The three stores must be
+   byte-identical, both device runs must have launched the sort kernel,
+   and every length they sorted must be one that phase 2 checked. Each
+   subprocess counts its launches from zero, so its count is its main
+   path's and no other.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels' JSON
-line, and the last line ``{"ok": true, "device": {...}}``. Any failed
-phase raises and exits non-zero before that line.
+line (with ``sort4``'s byte bound: 16 B read and 16 B written a row at
+the H100 SXM's 3.35 TB/s), and the last line ``{"ok": true, "device":
+{...}}``. Any failed phase raises and exits non-zero before that line.
+The script imports nothing of ``jax``, of ``point_cloud_tpu`` or of
+``bench.py``.
 """
 
 from __future__ import annotations
 
 import json
-import os
+import math
 import statistics
 import subprocess
 import sys
@@ -49,6 +56,11 @@ TILE_ROWS = 2048  # rows one block of the kernel sorts (csrc/sort4.cu)
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 KEY_SHAPES = ("full_range", "duplicates", "dedup_shaped", "all_equal",
               "presorted", "reversed", "long_runs", "extremes")
+# H100 SXM data sheet: HBM3 bandwidth, and the peak rate outside the
+# tensor cores (its f32 rate: the sheet gives none for int32)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+CLI_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -154,9 +166,20 @@ def phase_kernel(torch, np, sort) -> dict:
     return result
 
 
+def sort4_bound_ms(n: int) -> tuple[float, str]:
+    """Least time for one ``sort4`` of ``n`` rows: each 16-byte row read
+    once and written once, against one 4-column compare (4 i32 ops) per
+    row per merge level; the larger of the two and which one it is."""
+    bytes_ms = 32 * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * n * math.log2(n) / PEAK_OPS_PER_S * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes"
+    return ops_ms, "operations"
+
+
 def phase_pass(torch, np, dedup, get_pipeline) -> dict:
-    from bench import synth_cloud
-    from point_cloud_tpu.core.metadata import MetadataConfig
+    from point_cloud_tpu_torch.core.metadata import MetadataConfig
+    from point_cloud_tpu_torch.models.synth import synth_cloud
 
     n = 1 << 20
     fn, args = get_pipeline("conversion", n=n, seed=0, device="cuda")
@@ -195,7 +218,7 @@ def run_cli(flag: str, src: Path, out: Path) -> dict:
            "--batch-size", str(BATCH), "--profile", "-o", str(out),
            "-f", str(src)]
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
+                          timeout=CLI_TIMEOUT_S)
     if proc.returncode != 0 or "Failed converting" in proc.stderr:
         raise RuntimeError(f"{flag} conversion failed:\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -206,12 +229,25 @@ def store_files(root: Path) -> dict:
             if p.is_file()}
 
 
+def sorted_lengths(run: dict, flag: str, checked_lengths) -> dict:
+    """The run's sort4 launches by length; fails if it launched none or
+    sorted a length that phase 2 did not check."""
+    if run["launches"]["sort4"] <= 0:
+        raise AssertionError(f"the {flag} run launched no sort4")
+    by_n = {int(n): c for n, c in run["launches_by_n"]["sort4"].items()}
+    unchecked = sorted(n for n in by_n if n not in checked_lengths)
+    if unchecked:
+        raise AssertionError(f"the {flag} run sorted lengths {unchecked} "
+                             "that phase 2 did not check")
+    return by_n
+
+
 def phase_slice(np, checked_lengths) -> dict:
     import filecmp
 
-    from bench import synth_cloud
-    from point_cloud_tpu.core.point import PointBatch
-    from point_cloud_tpu.io.ply import write_ply
+    from point_cloud_tpu_torch.core.point import PointBatch
+    from point_cloud_tpu_torch.io.ply import write_ply
+    from point_cloud_tpu_torch.models.synth import synth_cloud
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -221,32 +257,40 @@ def phase_slice(np, checked_lengths) -> dict:
             synth_cloud(CLOUD_POINTS, seed=0),
             rng.integers(0, 256, (CLOUD_POINTS, 4), dtype=np.uint8),
         ))
-        port = run_cli("--device-native", src, tmp / "port")
-        host = run_cli("--native", src, tmp / "host")
-        a, b = store_files(tmp / "port"), store_files(tmp / "host")
-        if not a or set(a) != set(b):
-            raise AssertionError("store file sets differ")
-        bad = [k for k in a if not filecmp.cmp(a[k], b[k], shallow=False)]
-        if bad:
-            raise AssertionError(f"{len(bad)} store files differ: {bad[:5]}")
-        # counted by the --device-native subprocess itself, from zero at
-        # its start: the main path's launches and no others
-        launches = port["launches"]["sort4"]
-        if launches <= 0:
-            raise AssertionError("the --device-native run launched no sort4")
-        by_n = {int(n): c for n, c in port["launches_by_n"]["sort4"].items()}
-        unchecked = sorted(n for n in by_n if n not in checked_lengths)
-        if unchecked:
-            raise AssertionError(f"the slice sorted lengths {unchecked} "
-                                 "that phase 2 did not check")
+        runs = {flag: run_cli(flag, src, tmp / flag.strip("-"))
+                for flag in ("--device", "--device-native", "--native")}
+        host = store_files(tmp / "native")
+        for flag in ("--device", "--device-native"):
+            port = store_files(tmp / flag.strip("-"))
+            if not host or set(port) != set(host):
+                raise AssertionError(f"{flag}: store file sets differ")
+            bad = [k for k in host
+                   if not filecmp.cmp(port[k], host[k], shallow=False)]
+            if bad:
+                raise AssertionError(
+                    f"{flag}: {len(bad)} store files differ: {bad[:5]}")
+        device, native_device = runs["--device"], runs["--device-native"]
+        stages = device["stages"]
         result = {
             "phase": "slice", "ok": True, "points": CLOUD_POINTS,
-            "batch_size": BATCH, "store_files": len(a),
-            "byte_identical": True, "sort4_launches": launches,
-            "sort4_launches_by_n": by_n,
-            "device_native_s": port["convert_s"], "native_s": host["convert_s"],
-            "device_native_mpts_s": CLOUD_POINTS / port["convert_s"] / 1e6,
-            "native_mpts_s": CLOUD_POINTS / host["convert_s"] / 1e6,
+            "batch_size": BATCH, "store_files": len(host),
+            "byte_identical": True,
+            "sort4_launches": native_device["launches"]["sort4"],
+            "sort4_launches_by_n": sorted_lengths(
+                native_device, "--device-native", checked_lengths),
+            "device_sort4_launches": device["launches"]["sort4"],
+            "device_sort4_launches_by_n": sorted_lengths(
+                device, "--device", checked_lengths),
+            "device_s": device["convert_s"],
+            "device_native_s": native_device["convert_s"],
+            "native_s": runs["--native"]["convert_s"],
+            "device_mpts_s": CLOUD_POINTS / device["convert_s"] / 1e6,
+            "device_native_mpts_s":
+                CLOUD_POINTS / native_device["convert_s"] / 1e6,
+            "native_mpts_s": CLOUD_POINTS / runs["--native"]["convert_s"] / 1e6,
+            "device_stages": {name: stages[name] for name in (
+                "d2h_wait", "host_rebuild", "lsm_merge", "overflow_staging",
+            ) if name in stages},
         }
     emit(result)
     return result
@@ -273,9 +317,9 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime.load_kernels()
     t1 = time.perf_counter()
-    # the reference's C++ engine (g++, ~20 s) builds here, outside the
-    # timed conversions of phase 4
-    from point_cloud_tpu.native import hex_lockstep_ok
+    # the C++ engine (g++, ~20 s) builds here, outside the timed
+    # conversions of phase 4
+    from point_cloud_tpu_torch.native import hex_lockstep_ok
 
     if not hex_lockstep_ok():
         raise RuntimeError("C++ engine unavailable or not in IEEE lockstep")
@@ -291,11 +335,14 @@ def main() -> int:
     kernel = phase_kernel(torch, np, sort)
     phase_pass(torch, np, dedup, get_pipeline)
     sliced = phase_slice(np, {1 << log_n for log_n in SORT_SIZES})
-    if "jax" in sys.modules:
-        raise AssertionError("the port pulled jax in")
+    pulled = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "point_cloud_tpu", "bench"))
+    if pulled:
+        raise AssertionError(f"the port pulled in {pulled[:5]}")
 
     print(smi)
     main_n = 1 << MAIN_LOG_N
+    bound_ms, bound_by = sort4_bound_ms(main_n)
     emit({"kernels": [{
         "name": "sort4", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/sort4.cu",
@@ -304,7 +351,18 @@ def main() -> int:
         "max_abs_err": kernel["max_abs_err"],
         "ms": statistics.median(kernel["sort_ms_by_n"][main_n]),
         "plain_ms": statistics.median(kernel["plain_ms_by_n"][main_n]),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        # no single PyTorch call sorts four i32 columns lexicographically
+        "library_ms": None,
         "n": main_n,
+        "launches_by_path": {
+            "--device-native": {"launches": sliced["sort4_launches"],
+                                "by_n": sliced["sort4_launches_by_n"]},
+            "--device": {"launches": sliced["device_sort4_launches"],
+                         "by_n": sliced["device_sort4_launches_by_n"]},
+        },
+        "bound_ms_by_n": {n: sort4_bound_ms(n)[0]
+                          for n in kernel["sort_ms_by_n"]},
         "ms_by_n": {n: statistics.median(t)
                     for n, t in kernel["sort_ms_by_n"].items()},
         "plain_ms_by_n": {n: statistics.median(t)

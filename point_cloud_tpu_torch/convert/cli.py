@@ -1,25 +1,32 @@
 """Converter CLI of the port (counterpart of convert/cli.py).
 
-Takes the reference's flags (its ``build_parser()``, JAX-free at import):
+Takes the reference's flags (:func:`build_parser`, a copy of the
+reference's; the help of the flags not ported yet says so):
 
+- ``--device``: the port's :class:`PipelinedConverter` on ``cuda`` — the
+  device pass on the card, the per-cell LSM merge in NumPy on the host.
 - ``--device-native``: the port's :class:`NativeDevicePipelined` on
   ``cuda`` — the device pass on the card, the C++ merge engine on the
-  host. Without a card it fails; it never picks the CPU by itself.
-- ``--native`` and the host default: the reference's JAX-free
-  ``NativeConverter`` and ``Converter``.
-- ``--device``, ``--mesh`` and ``--multihost`` are not ported yet and
-  exit non-zero.
+  host.
+- ``--native`` and the host default: the port's copies of the
+  reference's ``NativeConverter`` and ``Converter``.
+- ``--mesh`` and ``--multihost`` are not ported yet and exit non-zero.
+
+``--device`` and ``--device-native`` fail without a card; they never
+pick the CPU by themselves.
 
 ``--profile`` prints the per-stage summary on stderr and, as the last
 line of stdout, one JSON object with the conversion's wall time, its
-point count and the kernels' launch counts (in all, and by length).
+point count, the kernels' launch counts (in all, and by length) and the
+per-stage times.
 
-    python -m point_cloud_tpu_torch.convert.cli --device-native \\
+    python -m point_cloud_tpu_torch.convert.cli --device \\
         --batch-size 262144 -o STORE -f cloud.ply
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import logging
@@ -28,10 +35,88 @@ import sys
 import time
 from pathlib import Path
 
-from point_cloud_tpu.convert.cli import build_parser
-from point_cloud_tpu.convert.converter import (
+from .converter import (
     DEFAULT_BATCH_SIZE, DEFAULT_CACHE_SIZE, Converter, convert_from_paths,
 )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="point-converter",
+        description=(
+            "Point converter will convert your points to a format that the "
+            "point cloud renderer can use. Currently supported file formats "
+            "are las/laz and ply and the generated metadata.json."
+        ),
+    )
+    parser.add_argument(
+        "-o", "--output", metavar="DIR", type=Path, default=None,
+        help="Output directory of the converted format. "
+             "Will be created if it doesn't exist.",
+    )
+    parser.add_argument(
+        "-d", "--directories", metavar="DIRS", type=Path, nargs="*",
+        default=[], help="Directories with input files to convert.",
+    )
+    parser.add_argument(
+        "-f", "--files", metavar="FILES", type=Path, nargs="*",
+        default=[], help="Input files with the points to convert.",
+    )
+    def positive_int(text: str) -> int:
+        value = int(text)
+        if value < 1:
+            raise argparse.ArgumentTypeError("must be >= 1")
+        return value
+
+    parser.add_argument(
+        "--batch-size", type=positive_int, default=None,
+        help="Points per conversion batch (defaults: 10000 host — the "
+        "reference's lib.rs:32 — 2^18 device/native, 2^20 mesh). Store "
+        "BYTES depend on the batch schedule (overflow groups stage "
+        "per-batch canonical chunks, like the reference's arrival-order "
+        "dependence), so pin the same --batch-size when byte-comparing "
+        "stores across backends; every backend is byte-identical at "
+        "equal batch size (tests/test_converter.py backend matrix).",
+    )
+    parser.add_argument(
+        "--device", action="store_true",
+        help="Run the dedup pipeline on the CUDA card (the port's "
+             "PipelinedConverter).",
+    )
+    parser.add_argument(
+        "--mesh", type=int, default=None, metavar="N",
+        help="Shard conversion over an N-device mesh (not ported yet: "
+             "exits non-zero).",
+    )
+    parser.add_argument(
+        "--native", action="store_true",
+        help="Run the whole cascade in the C++ engine (host-only, fastest "
+             "when the accelerator link is thin; keeps all cells in RAM).",
+    )
+    parser.add_argument(
+        "--device-native", action="store_true",
+        help="Device dedup pass + C++ merge engine: the card's pipeline "
+             "with the per-level host half running natively (see "
+             "convert/native_device.py).",
+    )
+    parser.add_argument(
+        "--cache-size", type=positive_int, default=None, metavar="N",
+        help="Cells kept in RAM before evicting to disk (default 65536; "
+             "the reference keeps 100, converter.rs:92 — results are "
+             "identical at any size, only disk traffic changes).",
+    )
+    parser.add_argument(
+        "--multihost", action="store_true",
+        help="Pod launch over several hosts (not ported yet: exits "
+             "non-zero).",
+    )
+    parser.add_argument(
+        "--profile", action="store_true",
+        help="Print a per-stage timing summary after conversion (stderr) "
+             "and one JSON line of totals, launches and stages (stdout).",
+    )
+    parser.add_argument("-v", "--verbose", action="store_true")
+    return parser
 
 
 def main(argv=None) -> int:
@@ -42,11 +127,10 @@ def main(argv=None) -> int:
     )
     log = logging.getLogger("point_cloud_tpu_torch.cli")
 
-    if args.device or args.mesh is not None or args.multihost:
-        flag = ("--device" if args.device else
-                "--mesh" if args.mesh is not None else "--multihost")
-        log.error("%s is not ported yet (ROADMAP.md); use --device-native "
-                  "or --native", flag)
+    if args.mesh is not None or args.multihost:
+        flag = "--mesh" if args.mesh is not None else "--multihost"
+        log.error("%s is not ported yet (ROADMAP.md); use --device, "
+                  "--device-native or --native", flag)
         return 2
 
     files = list(args.files)
@@ -64,17 +148,18 @@ def main(argv=None) -> int:
     factory = Converter
     batch_size = args.batch_size or DEFAULT_BATCH_SIZE
     if args.native:
-        from point_cloud_tpu.convert.native import NativeConverter
+        from .native import NativeConverter
 
         factory = NativeConverter
         batch_size = args.batch_size or 1 << 18
-    elif args.device_native:
+    elif args.device_native or args.device:
         from ..ops.runtime import resolve_device
-        from .native_device import NativeDevicePipelined
 
-        factory = functools.partial(
-            NativeDevicePipelined, device=resolve_device("cuda")
-        )
+        if args.device_native:
+            from .native_device import NativeDevicePipelined as cls
+        else:
+            from .pipelined import PipelinedConverter as cls
+        factory = functools.partial(cls, device=resolve_device("cuda"))
         batch_size = args.batch_size or 1 << 18
 
     cache_size = (
@@ -85,9 +170,8 @@ def main(argv=None) -> int:
                            cache_size=cache_size, converter_factory=factory)
         return 0
 
-    from point_cloud_tpu.utils.tracing import StageTimer
-
     from ..ops import sort
+    from ..utils.tracing import StageTimer
 
     with StageTimer() as timer:
         t0 = time.perf_counter()
@@ -102,6 +186,7 @@ def main(argv=None) -> int:
         "points": metadata.number_of_points,
         "launches": {"sort4": sort.launches},
         "launches_by_n": {"sort4": sort.launches_by_n},
+        "stages": timer.report(),
     }))
     return 0
 

@@ -2,12 +2,12 @@
 
 Counterpart of ``point_cloud_tpu/convert/native_device.py``
 (``NativeDeviceConverter``, ``NativeDevicePipelined``,
-``HOST_CASCADE_THRESHOLD``). The classes subclass the reference's
-JAX-free :class:`point_cloud_tpu.convert.native.NativeConverter`, so the
-whole host half — cell state, the LSM winner merge, the key rebuild and
-suspect audit inside ``pc_engine_merge_level_raw``, overflow staging,
-spilling, store writes — is the reference's own code. Only the per-level
-device pass is the port's (:mod:`point_cloud_tpu_torch.ops.dedup`).
+``HOST_CASCADE_THRESHOLD``). The classes subclass the port's copy of the
+reference's :class:`~.native.NativeConverter`, so the whole host half —
+cell state, the LSM winner merge, the key rebuild and suspect audit
+inside ``pc_engine_merge_level_raw``, overflow staging, spilling, store
+writes — runs in the reference's C++ engine (``native/pc_engine.cpp``).
+The per-level device pass is :mod:`point_cloud_tpu_torch.ops.dedup`.
 
 Per batch: while a level is at/above ``HOST_CASCADE_THRESHOLD`` rows,
 one device pass -> one ``pc_engine_merge_level_raw`` ->
@@ -28,14 +28,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from point_cloud_tpu.convert.native import NativeConverter
-from point_cloud_tpu.core.point import PointBatch
-from point_cloud_tpu.utils.tracing import stage
-
+from ..core.point import PointBatch
 from ..ops.dedup import dispatch_dedup_auto, packed_host
 from ..ops.runtime import resolve_device
+from ..utils.tracing import stage
 from . import device as device_mod
 from .device import DevicePrefetchMixin
+from .native import NativeConverter
 
 # levels below this many rows finish in the engine. The reference's
 # 2^15, kept until the H100 break-even is measured (ROADMAP.md).

@@ -4,6 +4,8 @@
   :func:`~point_cloud_tpu_torch.ops.dedup.dedup_pass`): quantize -> hash
   -> the Hopper sort kernel -> mark, audit, regroup.
 - ``frame`` — the render pipeline, not ported yet (ROADMAP.md).
+
+``models.synth`` holds the synthetic LiDAR-like cloud of the chip smoke.
 """
 
 from __future__ import annotations

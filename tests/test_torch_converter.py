@@ -1,14 +1,19 @@
-"""The port's --device-native converters against the host oracle.
+"""The port's device converters against the host oracle.
 
-``NativeDeviceConverter`` / ``NativeDevicePipelined`` of
+``NativeDeviceConverter`` / ``NativeDevicePipelined`` (``--device-native``)
+and ``DeviceConverter`` / ``PipelinedConverter`` (``--device``) of
 point_cloud_tpu_torch, run on ``device="cpu"`` (the plain versions of
 their kernels), must write stores byte-identical to the reference's host
 ``Converter`` at the same batch schedule — the pattern of
-tests/test_native_engine.py::TestNativeDeviceParity.
+tests/test_native_engine.py::TestNativeDeviceParity and
+tests/test_device_converter.py. One case runs ``--device`` on the card
+(``cuda`` marker; it skips without one):
+``PCT_TEST_PLATFORM=gpu python -m pytest tests/test_torch_converter.py -m cuda``.
 """
 
 import dataclasses
 import functools
+import json
 import zlib
 
 import numpy as np
@@ -20,12 +25,16 @@ from point_cloud_tpu.convert.converter import (
 )
 from point_cloud_tpu.core.metadata import Metadata, MetadataConfig
 from point_cloud_tpu.core.point import PointBatch
+from point_cloud_tpu_torch.convert import device as tdev
 from point_cloud_tpu_torch.convert import native_device as tnd
+from point_cloud_tpu_torch.convert import pipelined as tpip
 from point_cloud_tpu_torch.ops import dedup as td
 
 CLASSES = {
     "serial": tnd.NativeDeviceConverter,
     "pipelined": tnd.NativeDevicePipelined,
+    "device": tdev.DeviceConverter,
+    "device_pipelined": tpip.PipelinedConverter,
 }
 
 
@@ -51,12 +60,17 @@ def assert_stores_equal(a, b):
         assert fb[name] == data, f"mismatch in {name}"
 
 
-def port_converter(kind, *args, **kwargs):
-    from point_cloud_tpu.native import hex_lockstep_ok, load_native
+def port_converter(kind, metadata, *args, **kwargs):
+    """The port's converter on the CPU, given the reference's Metadata
+    (handed over as its JSON text, as a reopened store would be: the two
+    packages' classes are distinct)."""
+    from point_cloud_tpu_torch.core.metadata import Metadata as PortMetadata
+    from point_cloud_tpu_torch.native import hex_lockstep_ok, load_native
 
     if load_native() is None or not hex_lockstep_ok():
-        pytest.skip("no C++ toolchain for the reference engine")
-    return CLASSES[kind](*args, device="cpu", **kwargs)
+        pytest.skip("no C++ toolchain for the engine")
+    return CLASSES[kind](PortMetadata.loads(metadata.dumps()), *args,
+                         device="cpu", **kwargs)
 
 
 def convert(factory, out, batch, step, **kwargs):
@@ -71,6 +85,7 @@ def threshold(request, monkeypatch):
     default, exercising the engine's native tail."""
     if request.param is not None:
         monkeypatch.setattr(tnd, "HOST_CASCADE_THRESHOLD", request.param)
+        monkeypatch.setattr(tdev, "HOST_CASCADE_THRESHOLD", request.param)
     return request.param
 
 
@@ -111,7 +126,7 @@ def test_tiny_cache_spill_byte_identical(tmp_path, threshold, kind):
 def test_forced_collision_suspects_byte_identical(tmp_path, monkeypatch,
                                                   kind):
     """1-bit hashes: every level carries suspect rows, which the engine
-    re-dedups exactly."""
+    (or the NumPy host half) re-dedups exactly."""
     n = 8_000
     batch = random_batch(n, seed=77, lo=-3, hi=3)
     convert(Converter, tmp_path / "host", batch, 3_000)
@@ -119,6 +134,7 @@ def test_forced_collision_suspects_byte_identical(tmp_path, monkeypatch,
     monkeypatch.setattr(td, "_hash_cols",
                         lambda cols, primes: orig(cols, primes) & 1)
     monkeypatch.setattr(tnd, "HOST_CASCADE_THRESHOLD", 0)
+    monkeypatch.setattr(tdev, "HOST_CASCADE_THRESHOLD", 0)
     convert(functools.partial(port_converter, kind), tmp_path / "port",
             batch, 3_000)
     assert_stores_equal(tmp_path / "host", tmp_path / "port")
@@ -175,3 +191,83 @@ def test_cuda_converter_without_card_raises(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             cls(Metadata(), tmp_path / "store")  # device defaults to cuda
     assert not (tmp_path / "store").exists()
+
+
+@pytest.mark.parametrize("kind", ["device", "device_pipelined"])
+def test_incremental_merge_parity_device_converters(tmp_path, threshold,
+                                                    kind):
+    a = random_batch(5_000, seed=23)
+    b = random_batch(5_000, seed=24, lo=-150, hi=150)
+    for factory, d in [(Converter, "host"),
+                       (functools.partial(port_converter, kind), "port")]:
+        convert(factory, tmp_path / d, a, 2_500)
+        convert(factory, tmp_path / d, b, 2_500)
+    assert_stores_equal(tmp_path / "host", tmp_path / "port")
+
+
+@pytest.mark.parametrize("port_first", [False, True],
+                         ids=["reference_then_port", "port_then_reference"])
+def test_reference_device_store_then_port_merge(tmp_path, monkeypatch,
+                                                port_first):
+    """State carried across packages, both ways: the JAX DeviceConverter
+    (CPU backend) and the port's PipelinedConverter each write one batch
+    set into the same store."""
+    from point_cloud_tpu.convert import device as jdev
+
+    monkeypatch.setattr(jdev, "HOST_CASCADE_THRESHOLD", 0)
+    monkeypatch.setattr(tdev, "HOST_CASCADE_THRESHOLD", 0)
+    a = random_batch(6_000, seed=33, lo=-40, hi=40)
+    b = random_batch(6_000, seed=34, lo=-60, hi=60)
+    convert(Converter, tmp_path / "host", a, 3_000)
+    convert(Converter, tmp_path / "host", b, 3_000)
+    writers = [jdev.DeviceConverter,
+               functools.partial(port_converter, "device_pipelined")]
+    if port_first:
+        writers.reverse()
+    convert(writers[0], tmp_path / "mixed", a, 3_000)
+    convert(writers[1], tmp_path / "mixed", b, 3_000)
+    assert_stores_equal(tmp_path / "host", tmp_path / "mixed")
+
+
+def test_pipelined_matches_reference_pipelined(tmp_path):
+    """The port's PipelinedConverter against the reference's own, on the
+    JAX CPU backend, at the same batch schedule."""
+    from point_cloud_tpu.convert.pipelined import PipelinedConverter
+
+    batch = random_batch(16_000, seed=41, lo=-5, hi=5)
+    convert(PipelinedConverter, tmp_path / "reference", batch, 4_000)
+    convert(functools.partial(port_converter, "device_pipelined"),
+            tmp_path / "port", batch, 4_000)
+    assert_stores_equal(tmp_path / "reference", tmp_path / "port")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: --device runs the sort4 kernel")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cli_device_on_card(tmp_path, cuda_device, capsys):
+    """--device on the card: the same store as the host engine, through
+    the sort4 kernel, at sorted lengths of at least the 2^15 bucket."""
+    from point_cloud_tpu_torch.convert import cli
+    from point_cloud_tpu_torch.io.ply import write_ply
+    from point_cloud_tpu_torch.ops import sort
+
+    batch = random_batch(60_000, seed=51, lo=-60, hi=60)
+    src = tmp_path / "cloud.ply"
+    write_ply(src, batch)
+    common = ["--batch-size", "20000", "-f", str(src)]
+    # the counts are the process's: earlier tests may have sorted already
+    before = dict(sort.launches_by_n)
+    assert cli.main(["--device", "--profile", "-o", str(tmp_path / "card"),
+                     *common]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["points"] == 60_000
+    sorted_now = [n for n, c in sort.launches_by_n.items()
+                  if c > before.get(n, 0)]
+    assert sorted_now and min(sorted_now) >= 1 << 15
+    assert cli.main(["--native", "-o", str(tmp_path / "host"), *common]) == 0
+    assert_stores_equal(tmp_path / "host", tmp_path / "card")

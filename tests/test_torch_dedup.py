@@ -1,7 +1,10 @@
 """Port dedup pass (point_cloud_tpu_torch/ops/dedup.py) against the reference.
 
 Same numpy inputs (built by ``pass_args`` with the reference's f32
-roundings) through the JAX pass and the port's, at a 2^15 bucket.
+roundings) through the JAX pass and the port's, at a 2^15 bucket. The
+NumPy host half (``collect_dedup`` and the functions it calls) is held
+bit for bit against the reference's on the same packed rows, with forced
+hash collisions, hex-edge x == 0.0 rows and near ties.
 
 Comparison rule: ``winner`` exactly; ``perm`` and ``suspect`` exactly
 except inside runs that either side flags as a near-tie, because XLA:CPU
@@ -179,7 +182,7 @@ def test_keys_match_numpy_oracle(kind, hierarchy):
     radius = np.float32(scs) / np.float32(2.0)
     p = torch.from_numpy(pos)
     cell, sub, dist = td.hex_keys(p, np.float32(cs), radius)
-    nxt = td.cell_index(p, np.float32(cs) / np.float32(2.0))
+    nxt = td.torch_cell_index(p, np.float32(cs) / np.float32(2.0))
     h_cell, h_sub, h_dist, h_next = jd.host_keys_full(pos, cs, scs)
     assert np.array_equal(cell.numpy(), h_cell)
     assert np.array_equal(sub.numpy(), h_sub)
@@ -256,3 +259,81 @@ def test_pass_args_roundings_match_reference():
     assert c.item() == np.float32(cs)
     assert r.item() == np.float32(scs) / np.float32(2.0)
     assert c.dim() == 0 and r.dim() == 0
+
+
+# --- the NumPy host half (collect_dedup and what it calls) ----------------
+
+
+def adversarial_host_positions(seed):
+    """Random rows, exact duplicates, |p| ~ 500 near-ties and hex-edge
+    x == 0.0 rows, shuffled together."""
+    rng = np.random.default_rng(seed)
+    parts = [
+        rng.uniform(-300, 300, (4000, 3)),
+        np.round(rng.uniform(-2, 2, (3000, 3)) * 8) / 8,
+        500.0 + rng.uniform(-0.05, 0.05, (3000, 3)),
+    ]
+    pos = np.concatenate(parts).astype(np.float32)
+    pos[::5, 0] = 0.0
+    return pos[rng.permutation(len(pos))]
+
+
+HOST_CASES = [("random", 0), ("random", 6), ("random", 12), ("collide", 3),
+              ("collide", 9)]
+
+
+@pytest.mark.parametrize("kind,hierarchy", HOST_CASES)
+def test_collect_dedup_matches_reference(kind, hierarchy, monkeypatch):
+    """Both host halves take the same packed rows (the port's pass on the
+    CPU); every output must agree bit for bit. ``collide`` forces 1-bit
+    hashes, so most runs mix keys and resolve on the host."""
+    pos = adversarial_host_positions(seed=hierarchy)
+    if kind == "collide":
+        orig = td._hash_cols
+        monkeypatch.setattr(td, "_hash_cols",
+                            lambda cols, primes: orig(cols, primes) & 1)
+    cs, scs = grid(hierarchy)
+    handle = td.dispatch_dedup(pos, cs, scs, device="cpu")
+    packed = td.packed_host(handle)
+    got = td.collect_dedup(handle, pos, cs, scs)
+    ref = jd.collect_dedup({"n": len(pos), "packed": packed}, pos, cs, scs)
+    assert len(got) == len(ref) == 6
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and np.array_equal(
+            g.view(np.uint8), r.view(np.uint8))
+    suspects = ((packed >> 29) & 1).sum()
+    assert suspects > (len(pos) // 2 if kind == "collide" else 0)
+    # the port's own dedup_batch_host is the same dispatch + collect
+    again = td.dedup_batch_host(pos, cs, scs, device="cpu")
+    assert all(np.array_equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_half_functions_match_reference(seed):
+    """``host_keys`` (NumPy), ``host_keys_full`` (C++ or NumPy),
+    ``audit_device_runs`` and ``resolve_suspects_host`` on adversarial
+    keys and on random winner and suspect flags, which break every run
+    invariant the audit checks."""
+    rng = np.random.default_rng(seed)
+    pos = adversarial_host_positions(seed=100 + seed)
+    cs, scs = grid(3 * seed)
+    for g, r in zip(td.host_keys(pos, cs, scs), jd.host_keys(pos, cs, scs)):
+        assert np.array_equal(g.view(np.uint8), r.view(np.uint8))
+    keys = td.host_keys_full(pos, cs, scs)
+    for g, r in zip(keys, jd.host_keys_full(pos, cs, scs)):
+        assert np.array_equal(g.view(np.uint8), r.view(np.uint8))
+    cell_idx, sub_idx, dist, _ = keys
+    order = np.lexsort((dist, *sub_idx.T[::-1], *cell_idx.T[::-1]))
+    cell_s, sub_s, dist_s = cell_idx[order], sub_idx[order], dist[order]
+    perm = order.astype(np.int32)
+    for p_win, p_sus in [(0.5, 0.0), (0.3, 0.1), (0.9, 0.5)]:
+        winner = rng.random(len(pos)) < p_win
+        suspect = rng.random(len(pos)) < p_sus
+        got = td.audit_device_runs(winner, suspect, cell_s, sub_s)
+        ref = jd.audit_device_runs(winner, suspect, cell_s, sub_s)
+        assert np.array_equal(got, ref) and got.sum() > suspect.sum()
+        assert np.array_equal(
+            td.resolve_suspects_host(perm, winner, cell_s, sub_s, dist_s,
+                                     got),
+            jd.resolve_suspects_host(perm, winner, cell_s, sub_s, dist_s,
+                                     ref))

@@ -1,7 +1,8 @@
-"""Package-level checks of the port: no jax import, explicit devices, the
-CLI's backend flags, and the ``conversion`` pipeline against the
-reference's on the same inputs."""
+"""Package-level checks of the port: it imports neither jax nor the
+reference package, explicit devices, the CLI's backend flags, and the
+``conversion`` pipeline against the reference's on the same inputs."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -14,19 +15,60 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 
 
-def test_port_imports_no_jax():
-    """In a fresh process (tests/conftest.py itself imports jax)."""
+FORBIDDEN = ("jax", "point_cloud_tpu", "bench")
+
+
+def port_sources():
+    return [*sorted((REPO / "point_cloud_tpu_torch").rglob("*.py")),
+            REPO / "chip_smoke.py"]
+
+
+def test_port_imports_no_jax(tmp_path):
+    """In a fresh process (tests/conftest.py itself imports jax): import
+    every module of the port, run a small --native conversion through
+    its CLI, and find no module of jax or of the reference loaded."""
     code = (
-        "import sys\n"
-        "import point_cloud_tpu_torch.convert.cli, point_cloud_tpu_torch.models\n"
-        "import point_cloud_tpu_torch.convert.native_device\n"
-        "import point_cloud_tpu_torch.ops.dedup, point_cloud_tpu_torch.ops.sort\n"
-        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'jax'))\n"
+        "import importlib, pkgutil, sys\n"
+        "import numpy as np\n"
+        "import point_cloud_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from point_cloud_tpu_torch.convert import cli\n"
+        "from point_cloud_tpu_torch.core.point import PointBatch\n"
+        "from point_cloud_tpu_torch.io.ply import write_ply\n"
+        "rng = np.random.default_rng(1)\n"
+        "src = sys.argv[1] + '/cloud.ply'\n"
+        "write_ply(src, PointBatch(\n"
+        "    rng.uniform(-20, 20, (3000, 3)).astype(np.float32),\n"
+        "    rng.integers(0, 256, (3000, 4)).astype(np.uint8)))\n"
+        "assert cli.main(['--native', '--batch-size', '1000', '-o',\n"
+        "                 sys.argv[1] + '/store', '-f', src]) == 0\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'point_cloud_tpu')))\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "[]"
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    assert (tmp_path / "store" / "metadata.json").exists()
+
+
+@pytest.mark.parametrize("path", port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_nothing_of_the_reference(path):
+    """No import of jax, of the reference package or of bench.py, at any
+    depth of any function of the port or of chip_smoke.py."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert found == []
 
 
 def test_resolve_device_is_explicit():
@@ -40,8 +82,7 @@ def test_resolve_device_is_explicit():
             resolve_device("cuda")
 
 
-@pytest.mark.parametrize("flags", [["--device"], ["--mesh", "2"],
-                                   ["--multihost"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--multihost"]])
 def test_cli_unported_backends_exit_nonzero(tmp_path, flags, caplog):
     from point_cloud_tpu_torch.convert import cli
 
@@ -51,28 +92,31 @@ def test_cli_unported_backends_exit_nonzero(tmp_path, flags, caplog):
     assert not (tmp_path / "s").exists()
 
 
-def test_cli_device_native_needs_a_card(tmp_path):
+@pytest.mark.parametrize("flag", ["--device", "--device-native"])
+def test_cli_device_native_needs_a_card(tmp_path, flag):
     from point_cloud_tpu_torch.convert import cli
 
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the CPU-only refusal")
     with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(["--device-native", "-o", str(tmp_path / "s"),
+        cli.main([flag, "-o", str(tmp_path / "s"),
                   "-f", str(tmp_path / "x.ply")])
     assert not (tmp_path / "s").exists()
 
 
 def test_cli_native_matches_reference_cli(tmp_path, capsys):
-    """--native goes to the reference's C++ engine: the same store as the
-    reference CLI, and --profile ends stdout with the JSON summary."""
+    """--native goes to the port's copy of the C++ engine's converter: the
+    same store as the reference CLI, and --profile ends stdout with the
+    JSON summary."""
     from point_cloud_tpu.convert import cli as ref_cli
     from point_cloud_tpu.core.point import PointBatch
     from point_cloud_tpu.io.ply import write_ply
     from point_cloud_tpu.native import hex_lockstep_ok
     from point_cloud_tpu_torch.convert import cli
+    from point_cloud_tpu_torch.native import hex_lockstep_ok as port_ok
 
-    if not hex_lockstep_ok():
-        pytest.skip("no C++ toolchain for the reference engine")
+    if not (hex_lockstep_ok() and port_ok()):
+        pytest.skip("no C++ toolchain for the engine")
     rng = np.random.default_rng(5)
     src = tmp_path / "cloud.ply"
     write_ply(src, PointBatch(
@@ -88,6 +132,7 @@ def test_cli_native_matches_reference_cli(tmp_path, capsys):
     assert summary["points"] == 6000 and summary["convert_s"] > 0
     assert set(summary["launches"]) == {"sort4"}
     assert set(summary["launches_by_n"]) == {"sort4"}
+    assert isinstance(summary["stages"], dict)
     files = sorted(p.relative_to(tmp_path / "ref")
                    for p in (tmp_path / "ref").rglob("*") if p.is_file())
     assert files
