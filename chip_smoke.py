@@ -12,8 +12,9 @@ use. Imports no JAX. Phases, one JSON line each:
    (torch.sort) at every size 2^10..2^22 on eight key shapes (three
    random ones and five that break merge sorts), exact equality, and
    both times at 2^17, 2^18 and 2^20, the lengths the slice sorts most
-   (CUDA events, median of 7). The sizes include every bucket the slice
-   sorts (2^15..2^21 at batch 2^18);
+   (CUDA events, median of 7), with the kernel's own device time
+   (``torch.profiler``). The sizes include every bucket the slice sorts
+   (2^15..2^21 at batch 2^18);
 3. pass: ``get_pipeline("conversion", n=2^20)`` and ``dedup_pass_light``
    on the card against the same inputs through the port on the CPU,
    exact equality, and the pass times on the card;
@@ -27,10 +28,29 @@ use. Imports no JAX. Phases, one JSON line each:
    subprocess counts its launches from zero, so its count is its main
    path's and no other.
 
+5. frame: the ``--device-native`` store of phase 4 through the port's
+   ``Viewer`` at 1280x720, default settings. 5a captures every bucket of
+   one frame and holds the cull kernel (``cull_classify``) and the raster
+   kernel (``splat_raster``) against their plain versions on the card:
+   every K1 output and the framebuffer after each bucket bit-exact, on
+   the frame's buckets and on a synthetic bucket that fills the 9-, 17-,
+   33- and 65-px rungs past their caps. 5b renders the same frame with
+   ``device="cpu"`` and requires the rgb and id planes identical and the
+   depth equal by value. 5c zeroes the launch counts and runs
+   ``render_orbit`` for 8 frames: ``render`` times, ``render_pipelined``
+   steady time, points, buckets, launches per frame, and the device busy
+   share of one frame under ``torch.profiler``.
+
 Then the card's ``nvidia-smi`` name and power limit, the kernels' JSON
-line (with ``sort4``'s byte bound: 16 B read and 16 B written a row at
-the H100 SXM's 3.35 TB/s), and the last line ``{"ok": true, "device":
-{...}}``. Any failed phase raises and exits non-zero before that line.
+line, and the last line ``{"ok": true, "device": {...}}``. In the
+kernels' line ``ms`` is the kernel's own device time a call
+(``torch.profiler``, :func:`device_kernel_ms`), ``wrapper_ms`` the CUDA
+event time around the wrapper call (host work between launches
+included), ``plain_ms`` the event time of the plain version, and
+``bound_ms`` the byte bound at the H100 SXM's 3.35 TB/s (``sort4`` 16 B
+read and 16 B written a row; ``cull_classify`` and ``splat_raster`` as
+``cull_bound_ms`` and ``raster_bound_ms`` say). Any failed phase raises
+and exits non-zero before that line.
 The script imports nothing of ``jax``, of ``point_cloud_tpu`` or of
 ``bench.py``.
 """
@@ -67,13 +87,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` timed runs."""
+def cuda_ms(fn, reps: int = 7, setup=None) -> float:
+    """Median CUDA event time of ``fn()`` in ms over ``reps`` timed runs;
+    ``setup()``, if given, runs before each, outside the timed span."""
     import torch
 
     fn()  # warm-up
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -82,6 +105,29 @@ def cuda_ms(fn, reps: int = 7) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_kernel_ms(torch, fn, names: tuple, reps: int = 20) -> float:
+    """Device time a call of ``fn`` spends in the kernels whose names hold
+    one of ``names``: ``fn()`` run ``reps`` times under torch.profiler,
+    those kernels' summed activity over ``reps``. The wrapper's host work
+    and any other device work in ``fn`` are left out. Raises if no such
+    kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(name in e.name for name in names)]
+    if not spans:
+        raise AssertionError(f"the profiler saw no kernel named {names}")
+    return sum(spans) / reps / 1e3
 
 
 def sort_keys(kind: str, n: int, rng):
@@ -146,21 +192,24 @@ def phase_kernel(torch, np, sort) -> dict:
             if err != 0:
                 raise AssertionError(f"sort4 != plain at 2^{log_n} {kind}")
             checked.append(f"2^{log_n}:{kind}")
-    sort_ms, plain_ms = {}, {}
+    sort_ms, plain_ms, device_ms = {}, {}, {}
     for log_n in TIMED_LOG_N:
         cols = [torch.from_numpy(c).to(dev)
                 for c in sort_keys("dedup_shaped", 1 << log_n, rng)]
         # alternate plain, kernel, kernel, plain on one card
         p1 = cuda_ms(lambda: sort.sort4_reference(*cols))
         k1 = cuda_ms(lambda: sort.sort4(*cols))
+        d = device_kernel_ms(torch, lambda: sort.sort4(*cols),
+                             ("sort4_tile", "sort4_merge"))
         k2 = cuda_ms(lambda: sort.sort4(*cols))
         p2 = cuda_ms(lambda: sort.sort4_reference(*cols))
         sort_ms[1 << log_n] = [k1, k2]
         plain_ms[1 << log_n] = [p1, p2]
+        device_ms[1 << log_n] = d
     result = {
         "phase": "kernel_vs_plain", "ok": True, "checked": checked,
         "max_abs_err": worst, "sort_ms_by_n": sort_ms,
-        "plain_ms_by_n": plain_ms,
+        "plain_ms_by_n": plain_ms, "sort_device_ms_by_n": device_ms,
     }
     emit(result)
     return result
@@ -242,58 +291,487 @@ def sorted_lengths(run: dict, flag: str, checked_lengths) -> dict:
     return by_n
 
 
-def phase_slice(np, checked_lengths) -> dict:
+def phase_slice(np, checked_lengths, tmp: Path) -> dict:
+    """Phase 4, in ``tmp``; the ``--device-native`` store stays there."""
     import filecmp
 
     from point_cloud_tpu_torch.core.point import PointBatch
     from point_cloud_tpu_torch.io.ply import write_ply
     from point_cloud_tpu_torch.models.synth import synth_cloud
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        tmp = Path(tmp)
-        rng = np.random.default_rng(3)
-        src = tmp / "cloud.ply"
-        write_ply(src, PointBatch(
-            synth_cloud(CLOUD_POINTS, seed=0),
-            rng.integers(0, 256, (CLOUD_POINTS, 4), dtype=np.uint8),
-        ))
-        runs = {flag: run_cli(flag, src, tmp / flag.strip("-"))
-                for flag in ("--device", "--device-native", "--native")}
-        host = store_files(tmp / "native")
-        for flag in ("--device", "--device-native"):
-            port = store_files(tmp / flag.strip("-"))
-            if not host or set(port) != set(host):
-                raise AssertionError(f"{flag}: store file sets differ")
-            bad = [k for k in host
-                   if not filecmp.cmp(port[k], host[k], shallow=False)]
-            if bad:
-                raise AssertionError(
-                    f"{flag}: {len(bad)} store files differ: {bad[:5]}")
-        device, native_device = runs["--device"], runs["--device-native"]
-        stages = device["stages"]
-        result = {
-            "phase": "slice", "ok": True, "points": CLOUD_POINTS,
-            "batch_size": BATCH, "store_files": len(host),
-            "byte_identical": True,
-            "sort4_launches": native_device["launches"]["sort4"],
-            "sort4_launches_by_n": sorted_lengths(
-                native_device, "--device-native", checked_lengths),
-            "device_sort4_launches": device["launches"]["sort4"],
-            "device_sort4_launches_by_n": sorted_lengths(
-                device, "--device", checked_lengths),
-            "device_s": device["convert_s"],
-            "device_native_s": native_device["convert_s"],
-            "native_s": runs["--native"]["convert_s"],
-            "device_mpts_s": CLOUD_POINTS / device["convert_s"] / 1e6,
-            "device_native_mpts_s":
-                CLOUD_POINTS / native_device["convert_s"] / 1e6,
-            "native_mpts_s": CLOUD_POINTS / runs["--native"]["convert_s"] / 1e6,
-            "device_stages": {name: stages[name] for name in (
-                "d2h_wait", "host_rebuild", "lsm_merge", "overflow_staging",
-            ) if name in stages},
-        }
+    rng = np.random.default_rng(3)
+    src = tmp / "cloud.ply"
+    write_ply(src, PointBatch(
+        synth_cloud(CLOUD_POINTS, seed=0),
+        rng.integers(0, 256, (CLOUD_POINTS, 4), dtype=np.uint8),
+    ))
+    runs = {flag: run_cli(flag, src, tmp / flag.strip("-"))
+            for flag in ("--device", "--device-native", "--native")}
+    src.unlink()
+    host = store_files(tmp / "native")
+    for flag in ("--device", "--device-native"):
+        port = store_files(tmp / flag.strip("-"))
+        if not host or set(port) != set(host):
+            raise AssertionError(f"{flag}: store file sets differ")
+        bad = [k for k in host
+               if not filecmp.cmp(port[k], host[k], shallow=False)]
+        if bad:
+            raise AssertionError(
+                f"{flag}: {len(bad)} store files differ: {bad[:5]}")
+    device, native_device = runs["--device"], runs["--device-native"]
+    stages = device["stages"]
+    result = {
+        "phase": "slice", "ok": True, "points": CLOUD_POINTS,
+        "batch_size": BATCH, "store_files": len(host),
+        "byte_identical": True,
+        "sort4_launches": native_device["launches"]["sort4"],
+        "sort4_launches_by_n": sorted_lengths(
+            native_device, "--device-native", checked_lengths),
+        "device_sort4_launches": device["launches"]["sort4"],
+        "device_sort4_launches_by_n": sorted_lengths(
+            device, "--device", checked_lengths),
+        "device_s": device["convert_s"],
+        "device_native_s": native_device["convert_s"],
+        "native_s": runs["--native"]["convert_s"],
+        "device_mpts_s": CLOUD_POINTS / device["convert_s"] / 1e6,
+        "device_native_mpts_s":
+            CLOUD_POINTS / native_device["convert_s"] / 1e6,
+        "native_mpts_s": CLOUD_POINTS / runs["--native"]["convert_s"] / 1e6,
+        "device_stages": {name: stages[name] for name in (
+            "d2h_wait", "host_rebuild", "lsm_merge", "overflow_staging",
+        ) if name in stages},
+    }
     emit(result)
     return result
+
+
+# --- phase 5: the frame path ----------------------------------------------
+
+FRAME_W, FRAME_H = 1280, 720
+ORBIT_FRAMES = 8
+# one rung per window size the synthetic bucket fills, with the band of
+# pixel half-extents its rows get (the 9-rung band is [4, 4.5))
+SYNTH_BANDS = {9: (4.05, 4.45), 17: (5.0, 8.0), 33: (9.0, 16.0),
+               65: (20.0, 40.0)}
+SYNTH_ROWS = 4096  # per band: above the 33 and 65 rungs' caps at 2^14
+
+
+def settle(viewer, limit: int = 4000) -> None:
+    """Update until streaming has loaded every visible cell."""
+    for _ in range(limit):
+        viewer.update()
+        if not viewer.streamer.loading and len(viewer.streamer.should_load) == 0:
+            return
+    raise RuntimeError("streaming did not settle")
+
+
+def synth_bucket(torch, np, kw_like: dict):
+    """A bucket at 1280x720 whose splats fill the 9-, 17-, 33- and 65-px
+    rungs, the last two beyond their caps (the tests' chunked-raster
+    pattern at full width): SYNTH_ROWS rows per band of SYNTH_BANDS."""
+    from point_cloud_tpu_torch.render.camera import Camera
+    from point_cloud_tpu_torch.render.kernel import MAX_HIERARCHIES
+
+    dev = torch.device("cuda")
+    cam = Camera()
+    cam.projection.far = 5000.0
+    cam.projection.aspect_ratio = FRAME_W / FRAME_H
+    proj = cam.projection_matrix().astype(np.float32)
+    t = cam.transform
+    rng = np.random.default_rng(11)
+    slope = cam.projection.slope()
+    pos = []
+    for lo, hi in SYNTH_BANDS.values():
+        rmax = rng.uniform(lo, hi, SYNTH_ROWS)
+        # radius 1: ry = P11 / d * H / 2, so d = P11 * H / 2 / rmax
+        d = proj[1, 1] * (FRAME_H / 2) / rmax
+        sx, sy = (rng.uniform(-0.9, 0.9, SYNTH_ROWS) for _ in range(2))
+        pos.append(t.translation + d[:, None] * t.forward()
+                   + (sx * d * slope * cam.projection.aspect_ratio)[:, None]
+                   * t.right() + (sy * d * slope)[:, None] * t.up())
+    pos = np.concatenate(pos).astype(np.float32)
+    n = len(pos)
+    spacings = np.zeros(MAX_HIERARCHIES, np.float32)
+    spacings[0] = 1.0
+    as_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    args = (as_dev(pos), torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.arange(1, n + 1, dtype=torch.int32, device=dev),
+            as_dev(cam.view_matrix().astype(np.float32)), as_dev(proj),
+            as_dev(np.asarray(t.translation, np.float32)), as_dev(spacings),
+            torch.zeros(MAX_HIERARCHIES, dtype=torch.float32, device=dev),
+            False, 0, kw_like["thresholds"])
+    kw = {k: v for k, v in kw_like.items() if k != "thresholds"}
+    return args, kw
+
+
+def cull_inputs(splat, kernel, fb_in, args, kw):
+    """K1's arguments for a captured bucket, as render_bucket_pass forms
+    them."""
+    (positions, hier_base, valid, _ids, view, proj, cam_pos, spacings,
+     fars, sbd, maxh, thresholds) = args
+    depth = coarse = None
+    if kw["use_occlusion"]:
+        depth = splat.framebuffer_depth(splat.Framebuffer(fb_in),
+                                        kw["height"], kw["width"])
+        if kw["use_pyramid"]:
+            coarse = kernel.coarse_depth_grid(depth)
+    return ((positions, hier_base, valid, view, proj, cam_pos, spacings, fars,
+             sbd, maxh, thresholds, kw["width"], kw["height"]),
+            dict(depth=depth, coarse=coarse))
+
+
+def same_bits(torch, a, b) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def abs_err(torch, a, b) -> float:
+    """Largest |a - b| (inf where one side is NaN and the other not)."""
+    d = (a.double() - b.double()).abs()
+    both_nan = a.double().isnan() & b.double().isnan()
+    return float(torch.where(both_nan, 0.0, d).nan_to_num(nan=math.inf).max())
+
+
+def check_bucket(torch, splat, kernel, fb_in, args, kw) -> dict:
+    """K1 against its plain version, then the bucket's whole chain with
+    the kernels against the chain with the plain versions, from the same
+    input framebuffer: every output and the framebuffer bits equal. The
+    largest differences found go into ``cull_err`` (K1's outputs) and
+    ``raster_err`` (the framebuffer's depth and id planes after the
+    bucket, and the bucket's counts)."""
+    cargs, ckw = cull_inputs(splat, kernel, fb_in, args, kw)
+    got = kernel.cull_classify(*cargs, **ckw)
+    ref = kernel.cull_classify_reference(*cargs, **ckw)
+    cull_err = max(abs_err(torch, g, r) for g, r in zip(got, ref))
+    for name, g, r in zip(("keep", "hierarchy", "view_pos", "ndc", "radius",
+                           "rmax", "rung"), got, ref):
+        if not same_bits(torch, g, r):
+            raise AssertionError(f"cull_classify != plain in {name}: "
+                                 f"max abs err {cull_err}")
+    fb_k = splat.Framebuffer(fb_in.clone())
+    fb_p = splat.Framebuffer(fb_in.clone())
+    _, vec_k = splat.render_bucket_pass(fb_k, *args, **kw)
+    _, vec_p = splat.render_bucket_pass(
+        fb_p, *args, **kw, cull=kernel.cull_classify_reference,
+        raster=splat.splat_raster_reference)
+    torch.cuda.synchronize()
+    raster_err = max(abs_err(torch, vec_k, vec_p),
+                     abs_err(torch, fb_k.depth, fb_p.depth),
+                     abs_err(torch, fb_k.point_id, fb_p.point_id))
+    if not torch.equal(vec_k, vec_p):
+        raise AssertionError("bucket counts: kernels != plain")
+    if not torch.equal(fb_k.packed, fb_p.packed):
+        raise AssertionError("framebuffer after the bucket: kernels != plain"
+                             f": max abs err {raster_err}")
+    return {"n": int(args[0].shape[0]), "kept": int(vec_k[0]),
+            "rung_counts": vec_k[1:].tolist(),
+            "lit_pixels": int((fb_k.packed != fb_in).sum()),
+            "cull_err": cull_err, "raster_err": raster_err}
+
+
+def raster_inputs(splat, kernel, fb_in, args, kw):
+    """The raster stage's inputs for a bucket: K1's outputs and the rung
+    ranking, computed once."""
+    cargs, ckw = cull_inputs(splat, kernel, fb_in, args, kw)
+    keep, _, view_pos, ndc, radius, _, rung = kernel.cull_classify(*cargs, **ckw)
+    rungs = tuple(kw["sub_ks"]) + (kw["footprint"],) + tuple(kw["overflow_ks"])
+    perm, counts, offsets = splat.compact_classes(rung, len(rungs))
+    return dict(view_pos=view_pos, ndc=ndc, radius=radius, point_id=args[3],
+                perm=perm, counts=counts, offsets=offsets, projection=args[5],
+                height=kw["height"], width=kw["width"], rungs=rungs,
+                footprint=kw["footprint"], voronoi=kw["voronoi"],
+                kept=int(keep.sum()))
+
+
+def run_rungs(splat, fb, inp, raster):
+    return splat.raster_rungs(
+        fb, inp["view_pos"], inp["ndc"], inp["radius"], inp["point_id"],
+        inp["perm"], inp["counts"], inp["offsets"], inp["projection"],
+        height=inp["height"], width=inp["width"], rungs=inp["rungs"],
+        footprint=inp["footprint"], voronoi=inp["voronoi"], raster=raster)
+
+
+def time_kernel(torch, kernel_fn, plain_fn, names: tuple, plain_reps: int,
+                setup=None) -> dict:
+    """Plain, kernel, kernel, plain on one card. ``ms``: the kernel's own
+    device time a call (:func:`device_kernel_ms`, twice); ``wrapper_ms``:
+    CUDA events around the wrapper call between them; ``plain_ms``: CUDA
+    events around the plain version, before and after. ``setup()`` runs
+    before each timed call (outside the event span)."""
+    def with_setup(fn):
+        return fn if setup is None else lambda: (setup(), fn())
+
+    p1 = cuda_ms(plain_fn, reps=plain_reps, setup=setup)
+    d1 = device_kernel_ms(torch, with_setup(kernel_fn), names)
+    wrapper = cuda_ms(kernel_fn, setup=setup)
+    d2 = device_kernel_ms(torch, with_setup(kernel_fn), names)
+    p2 = cuda_ms(plain_fn, reps=plain_reps, setup=setup)
+    return {"ms": (d1 + d2) / 2, "ms_runs": [d1, d2], "wrapper_ms": wrapper,
+            "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
+
+
+def lit_fragments(torch, splat, inp) -> tuple[int, int]:
+    """The fragments the bucket's rung rasters light (inside the circle,
+    on screen, depth in [0, 1]) and the distinct pixels they land on,
+    counted with the plain expansion."""
+    total = [0]
+    touched = torch.zeros(inp["height"] * inp["width"], dtype=torch.bool,
+                          device=inp["perm"].device)
+
+    def count(fb, vp, ndc, radius, pid, perm, start, cnt, proj, h, w, k,
+              voronoi, chunk_rows):
+        s, c = int(start[0]), int(cnt[0])
+        for c0 in range(0, c, chunk_rows):
+            rows = perm[s + c0 : s + min(c0 + chunk_rows, c)].long()
+            idx, _, valid = splat.fragments(vp[rows], ndc[rows], radius[rows],
+                                            pid[rows], proj, h, w, k, voronoi)
+            total[0] += int(valid.sum())
+            touched[idx[valid]] = True
+        return fb
+
+    run_rungs(splat, inp["perm"], inp, count)  # count() writes nothing
+    return total[0], int(touched.sum())
+
+
+def cull_bound_ms(n: int, inside: int, occlusion: bool, pyramid: bool,
+                  pixels: int, coarse_cells: int) -> float:
+    """Least time for K1 over n points, in bytes at the HBM rate: each
+    point reads its position, hierarchy and valid flag (17 B) and writes
+    the outputs the bucket pass reads, keep, view_pos, ndc, radius and
+    rung (37 B; the hierarchy and rmax it also writes are discarded
+    there). Only the ``inside`` points (valid, inside the NDC box) need
+    the depth plane (f32) and the coarse grid (f32), each of those read at
+    most once: 4 B * min(inside, plane size) and 4 B * min(inside, grid
+    size). Its ~60 f32 operations a point are far below the f32 peak."""
+    moved = n * (17 + 37)
+    if occlusion:
+        moved += 4 * min(inside, pixels)
+        if pyramid:
+            moved += 4 * min(inside, coarse_cells)
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def raster_bound_ms(rows: int, touched: int) -> float:
+    """Least time for one bucket's K2 launches, in bytes at the HBM rate:
+    each rastered row reads its perm entry, view_pos.z, ndc, radius and id
+    (28 B), and each framebuffer word that a lit fragment lands on is read
+    once and written once (2 * 8 B * ``touched`` distinct pixels, at most
+    the whole 8 B * H * W plane). Fragments that hit a word again stay in
+    the card's 50 MB L2, which holds the plane (7.4 MB at 1280x720), so
+    they are not charged to HBM."""
+    return (28 * rows + 16 * touched) / HBM_BYTES_PER_S * 1e3
+
+
+def busy_share(torch, fn) -> dict:
+    """Run ``fn`` once under torch.profiler: the device time of its
+    kernels and copies over the host wall time of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_kernel = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3)
+    device_us, reach = 0.0, None  # the union of the device spans
+    for lo, hi in sorted(spans):
+        if reach is None or lo > reach:
+            device_us += hi - lo
+            reach = hi
+        elif hi > reach:
+            device_us += hi - reach
+            reach = hi
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
+            "busy_share": device_us / 1e3 / wall_ms if device_us else None,
+            "top_device_ms": dict(top)}
+
+
+def host_profile(fn, top: int = 10) -> dict:
+    """Run ``fn`` once under cProfile: the host functions with the most
+    cumulative time, in ms."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[3], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
+                   for k, v in stats.items()), reverse=True)[:top]
+    return {name: cum * 1e3 for cum, name in rows}
+
+
+def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
+    from point_cloud_tpu_torch.render import kernel, splat
+    from point_cloud_tpu_torch.render.renderer import (
+        PointRenderer, RenderSettings,
+    )
+    from point_cloud_tpu_torch.viewer import Viewer
+    from point_cloud_tpu_torch.viewer.offscreen import render_orbit
+
+    t_phase = time.perf_counter()
+    viewer = Viewer(RenderSettings(width=FRAME_W, height=FRAME_H),
+                    device="cuda")
+    viewer.load_metadata(store / "metadata.json")
+    settle(viewer)
+    load_s = time.perf_counter() - t_phase
+
+    # 5a: capture every bucket's inputs from one frame, then hold the
+    # kernels against their plain versions on them
+    captured = []
+    bucket_pass = splat.render_bucket_pass
+
+    def capture(framebuffer, *args, **kw):
+        captured.append((framebuffer.packed.clone(), args, kw))
+        return bucket_pass(framebuffer, *args, **kw)
+
+    splat.render_bucket_pass = capture
+    try:
+        rgb_gpu, depth_gpu, stats_gpu = viewer.render()
+    finally:
+        splat.render_bucket_pass = bucket_pass
+    if not captured:
+        raise AssertionError("the frame rendered no bucket")
+    buckets = [check_bucket(torch, splat, kernel, *entry) for entry in captured]
+    synth_args, synth_kw = synth_bucket(torch, np, {**captured[0][2],
+                                                   "thresholds": captured[0][1][-1]})
+    synth_fb = splat.make_framebuffer(FRAME_H, FRAME_W, "cuda").packed
+    synth = check_bucket(torch, splat, kernel, synth_fb, synth_args, synth_kw)
+    rungs = (tuple(synth_kw["sub_ks"]) + (synth_kw["footprint"],)
+             + tuple(synth_kw["overflow_ks"]))
+    n_synth = synth["n"]
+    for k in SYNTH_BANDS:
+        rows = synth["rung_counts"][rungs.index(k)]
+        cap = splat.rung_chunk_rows(k, n_synth) * splat.RUNG_CAP_CHUNKS
+        if rows == 0 or (k in (33, 65) and rows <= cap):
+            raise AssertionError(f"the synthetic bucket missed rung {k}: "
+                                 f"{rows} rows, cap {cap}")
+    emit({"phase": "frame_kernels", "ok": True, "exact": True,
+          "buckets": buckets, "synthetic": synth})
+
+    # 5b: the same frame on the CPU, through the plain versions
+    t0 = time.perf_counter()
+    cpu = PointRenderer(viewer.metadata, RenderSettings(
+        width=FRAME_W, height=FRAME_H), device="cpu")
+    rgb_cpu, depth_cpu, stats_cpu = cpu.render(
+        viewer.streamer, viewer.camera, viewer._frustums)
+    cpu_s = time.perf_counter() - t0
+    ids_gpu = viewer.renderer.framebuffer.point_id.cpu()
+    if not np.array_equal(rgb_gpu, rgb_cpu):
+        raise AssertionError("frame rgb: cuda != cpu")
+    if not torch.equal(ids_gpu, cpu.framebuffer.point_id):
+        raise AssertionError("frame ids: cuda != cpu")
+    if not np.array_equal(depth_gpu, depth_cpu):  # by value: +-0 agree
+        raise AssertionError("frame depth: cuda != cpu")
+    if stats_gpu["points_visible"] != stats_cpu["points_visible"]:
+        raise AssertionError("frame visible points: cuda != cpu")
+    lit = int((ids_gpu != int(splat._NO_ID)).sum())
+    if stats_gpu["points_visible"] <= 0 or lit == 0:
+        raise AssertionError("the frame shows no point")
+    emit({"phase": "frame_cpu", "ok": True, "identical": True,
+          "points_visible": stats_gpu["points_visible"], "lit_pixels": lit,
+          "cpu_frame_s": cpu_s})
+
+    # kernel times at the main path's shapes, the frame's largest bucket:
+    # plain, kernel, kernel, plain on one card
+    big = max(captured, key=lambda e: e[1][0].shape[0])
+    cargs, ckw = cull_inputs(splat, kernel, *big)
+    cull_t = time_kernel(
+        torch, lambda: kernel.cull_classify(*cargs, **ckw),
+        lambda: kernel.cull_classify_reference(*cargs, **ckw),
+        ("cull_classify_kernel",), plain_reps=3)
+    inp = raster_inputs(splat, kernel, *big)
+    fb_big = big[0].clone()
+    raster_t = time_kernel(
+        torch, lambda: run_rungs(splat, fb_big, inp, splat.splat_raster),
+        lambda: run_rungs(splat, fb_big, inp, splat.splat_raster_reference),
+        ("splat_raster_kernel",), plain_reps=2,
+        setup=lambda: fb_big.copy_(big[0]))
+    frags, touched = lit_fragments(torch, splat, inp)
+    n_big = int(big[1][0].shape[0])
+    # the points K1's occlusion tests read the depth for: valid, inside
+    # the NDC box
+    ndc = inp["ndc"]
+    inside = int(((ndc[:, 0].abs() <= 1.0) & (ndc[:, 1].abs() <= 1.0)
+                  & ((ndc[:, 2] - 0.5).abs() <= 0.5) & big[1][2]).sum())
+    coarse_cells = (-(-FRAME_H // kernel.PYRAMID_TILE)
+                    * -(-FRAME_W // kernel.PYRAMID_TILE))
+
+    # 5c: the orbit, the main path's run: every count starts at 0 here
+    kernel.launches = splat.launches = 0
+    times = []
+    render = viewer.render
+
+    def timed_render():
+        t0 = time.perf_counter()
+        out = render()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    viewer.render = timed_render
+    try:
+        paths = render_orbit(viewer, tmp / "orbit", n_frames=ORBIT_FRAMES)
+    finally:
+        viewer.render = render
+    launches = {"cull_classify": kernel.launches,
+                "splat_raster": splat.launches}
+    if len(paths) != ORBIT_FRAMES or min(launches.values()) <= 0:
+        raise AssertionError(f"the orbit did not run its kernels: {launches}")
+    frame = render()
+    if frame[0].shape != (FRAME_H, FRAME_W, 3) or frame[0].dtype != np.uint8:
+        raise AssertionError("orbit frame shape")
+    if not np.isfinite(frame[1]).all() or frame[2]["points_visible"] <= 0:
+        raise AssertionError("orbit frame: non-finite depth or nothing visible")
+
+    # render_pipelined at the last orbit camera: steady frames
+    viewer.render_pipelined()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = 0
+    for _ in range(ORBIT_FRAMES):
+        done += viewer.render_pipelined() is not None
+    done += viewer.render_flush() is not None
+    pipelined_ms = (time.perf_counter() - t0) * 1e3 / done
+    profiled = busy_share(torch, render)
+    profiled["host_cumulative_ms"] = host_profile(render)
+    result = {
+        "phase": "frame", "ok": True, "width": FRAME_W, "height": FRAME_H,
+        "frames": ORBIT_FRAMES, "render_ms": times,
+        "render_ms_median_after_first": statistics.median(times[1:]),
+        "render_pipelined_ms": pipelined_ms,
+        "points_loaded": viewer.streamer.stats().loaded_points,
+        "points_in": frame[2]["points_in"],
+        "points_visible": frame[2]["points_visible"],
+        "buckets_per_frame": frame[2]["buckets"],
+        "launches": launches,
+        "launches_per_frame": {k: v / ORBIT_FRAMES for k, v in launches.items()},
+        "profiled_frame": profiled, "load_s": load_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    checked = buckets + [synth]
+    return {
+        "frame": result,
+        "cull": {**cull_t, "n": n_big, "inside": inside,
+                 "max_abs_err": max(b["cull_err"] for b in checked),
+                 "bound_ms": cull_bound_ms(
+                     n_big, inside, big[2]["use_occlusion"],
+                     big[2]["use_pyramid"], FRAME_H * FRAME_W, coarse_cells)},
+        "raster": {**raster_t, "n": n_big, "rows": inp["kept"],
+                   "fragments": frags, "touched_pixels": touched,
+                   "max_abs_err": max(b["raster_err"] for b in checked),
+                   "bound_ms": raster_bound_ms(inp["kept"], touched)},
+    }
 
 
 def main() -> int:
@@ -334,7 +812,10 @@ def main() -> int:
 
     kernel = phase_kernel(torch, np, sort)
     phase_pass(torch, np, dedup, get_pipeline)
-    sliced = phase_slice(np, {1 << log_n for log_n in SORT_SIZES})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        sliced = phase_slice(np, {1 << log_n for log_n in SORT_SIZES}, tmp)
+        framed = phase_frame(torch, np, tmp / "device-native", tmp)
     pulled = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "point_cloud_tpu", "bench"))
     if pulled:
@@ -343,13 +824,16 @@ def main() -> int:
     print(smi)
     main_n = 1 << MAIN_LOG_N
     bound_ms, bound_by = sort4_bound_ms(main_n)
+    frame_launches = framed["frame"]["launches"]
+    cull, raster = framed["cull"], framed["raster"]
     emit({"kernels": [{
         "name": "sort4", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/sort4.cu",
         "replaces": "point_cloud_tpu/ops/sort_pallas.py:220",
         "launches": sliced["sort4_launches"],
         "max_abs_err": kernel["max_abs_err"],
-        "ms": statistics.median(kernel["sort_ms_by_n"][main_n]),
+        "ms": kernel["sort_device_ms_by_n"][main_n],
+        "wrapper_ms": statistics.median(kernel["sort_ms_by_n"][main_n]),
         "plain_ms": statistics.median(kernel["plain_ms_by_n"][main_n]),
         "bound_ms": bound_ms, "bound_by": bound_by,
         # no single PyTorch call sorts four i32 columns lexicographically
@@ -363,10 +847,42 @@ def main() -> int:
         },
         "bound_ms_by_n": {n: sort4_bound_ms(n)[0]
                           for n in kernel["sort_ms_by_n"]},
-        "ms_by_n": {n: statistics.median(t)
-                    for n, t in kernel["sort_ms_by_n"].items()},
+        "ms_by_n": kernel["sort_device_ms_by_n"],
+        "wrapper_ms_by_n": {n: statistics.median(t)
+                            for n, t in kernel["sort_ms_by_n"].items()},
         "plain_ms_by_n": {n: statistics.median(t)
                           for n, t in kernel["plain_ms_by_n"].items()},
+    }, {
+        "name": "cull_classify", "route": "cuda",
+        "source": "point_cloud_tpu_torch/csrc/cull.cu",
+        "replaces": "point_cloud_tpu/render/kernel.py:205",
+        "launches": frame_launches["cull_classify"],
+        "max_abs_err": cull["max_abs_err"],
+        "ms": cull["ms"], "wrapper_ms": cull["wrapper_ms"],
+        "plain_ms": cull["plain_ms"],
+        "bound_ms": cull["bound_ms"], "bound_by": "bytes",
+        # no single PyTorch call projects, culls and classifies points
+        "library_ms": None,
+        "n": cull["n"], "inside": cull["inside"],
+        "ms_runs": cull["ms_runs"], "plain_ms_runs": cull["plain_ms_runs"],
+    }, {
+        "name": "splat_raster", "route": "cuda",
+        "source": "point_cloud_tpu_torch/csrc/splat.cu",
+        "replaces": "point_cloud_tpu/render/splat.py:614",
+        "launches": frame_launches["splat_raster"],
+        "max_abs_err": raster["max_abs_err"],
+        "ms": raster["ms"], "wrapper_ms": raster["wrapper_ms"],
+        "plain_ms": raster["plain_ms"],
+        "bound_ms": raster["bound_ms"], "bound_by": "bytes",
+        # no single PyTorch call expands splats into fragments; the
+        # scatter_reduce_ of the plain version is only its last step
+        "library_ms": None,
+        "n": raster["n"], "rows": raster["rows"],
+        "fragments": raster["fragments"],
+        "touched_pixels": raster["touched_pixels"],
+        "ms_runs": raster["ms_runs"],
+        "plain_ms_runs": raster["plain_ms_runs"],
+        "unit": "all raster launches of the frame's largest bucket",
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

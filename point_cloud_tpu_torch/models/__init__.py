@@ -3,7 +3,9 @@
 - ``conversion`` — the port's full dedup pass (ops/dedup.py
   :func:`~point_cloud_tpu_torch.ops.dedup.dedup_pass`): quantize -> hash
   -> the Hopper sort kernel -> mark, audit, regroup.
-- ``frame`` — the render pipeline, not ported yet (ROADMAP.md).
+- ``frame`` — the fused cull and LOD pass of the frame (render/kernel.py
+  :func:`~point_cloud_tpu_torch.render.kernel.cull_lod_pass`): the LOD
+  walk over the loaded-cells hash, then the cull kernel.
 
 ``models.synth`` holds the synthetic LiDAR-like cloud of the chip smoke.
 """
@@ -41,7 +43,49 @@ def get_pipeline(name: str, n: int = 1 << 16, seed: int = 0,
         )
         return dedup_pass, args
     if name == "frame":
-        raise NotImplementedError(
-            "the frame pipeline is not ported yet (ROADMAP.md, A, next 3)"
+        import torch
+
+        from ..render.camera import Camera
+        from ..render.kernel import (
+            MAX_HIERARCHIES, build_loaded_cells_hash, cull_lod_pass,
         )
+
+        cam = Camera()
+        positions = rng.uniform(-400, 400, (n, 3)).astype(np.float32)
+        table = np.unique(
+            rng.integers(-4, 4, (2000, 4)).astype(np.int32), axis=0
+        )
+        cell_sizes = np.asarray(
+            [1000.0 / 2**h for h in range(MAX_HIERARCHIES)], np.float32
+        )
+
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+        args = (
+            dev(positions),
+            torch.zeros(n, dtype=torch.int32, device=device),
+            torch.ones(n, dtype=torch.bool, device=device),
+            dev(cam.view_matrix().astype(np.float32)),
+            dev(cam.projection_matrix().astype(np.float32)),
+            dev(np.asarray(cam.transform.translation, np.float32)),
+            dev(cell_sizes),
+            dev(cell_sizes / np.float32(96.0)),
+            dev(build_loaded_cells_hash(table)),
+            torch.full((MAX_HIERARCHIES,), 1e9, dtype=torch.float32,
+                        device=device),
+            False,
+            0,
+        )
+
+        def frame_fn(positions, point_hierarchy, valid, view, projection,
+                     cam_pos, cell_sizes, spacings, loaded_hash,
+                     far_distances, size_by_distance, max_hierarchy):
+            return cull_lod_pass(
+                positions, point_hierarchy, valid, view, projection,
+                cam_pos, cell_sizes, spacings, 6, loaded_hash,
+                far_distances, size_by_distance, max_hierarchy,
+            )
+
+        return frame_fn, args
     raise KeyError(f"unknown pipeline {name!r}; one of {PIPELINES}")

@@ -8,8 +8,9 @@ remote TPU's health; neither exists here. What the port needs instead:
   the CPU is used only when a caller passes ``device="cpu"``.
 - :func:`load_kernels` — builds ``csrc/*.cu`` with nvcc into a shared
   library with a plain C interface (``sm_90a``), cached in ``_build/`` by
-  a hash of the sources and flags, and loads it with ctypes. The build
-  runs at first use, never at import.
+  a hash of the sources and flags, and loads it with ctypes. One nvcc
+  per source, all started together, then one link. The build runs at
+  first use, never at import.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ _CSRC = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -71,6 +72,36 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _build(sources, out: Path) -> None:
+    """Compile each source to an object, all nvcc processes at once, then
+    link them into the shared library ``out``."""
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in sources]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    errors = []
+    for src, proc in zip(sources, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def load_kernels():
     """The ctypes handle of the built kernel library (builds on first use)."""
     global _lib
@@ -83,23 +114,20 @@ def load_kernels():
         if not lib_path.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                *[str(s) for s in sources],
-            ]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _build(sources, tmp)
             seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
             os.replace(tmp, lib_path)  # atomic: concurrent builds agree
         lib = ctypes.CDLL(str(lib_path))
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.pc_sort4.restype = ctypes.c_int
-        lib.pc_sort4.argtypes = [ctypes.c_void_p] * 12 + [
-            ctypes.c_longlong, ctypes.c_void_p,
-        ]
+        lib.pc_sort4.argtypes = [ptr] * 12 + [i64, ptr]
+        lib.pc_cull_classify.restype = ctypes.c_int
+        lib.pc_cull_classify.argtypes = (
+            [ptr] * 8 + [i32, i32, ptr, ptr, i32, ptr, i32, i32, i32]
+            + [ptr] * 7 + [i64, ptr])
+        lib.pc_splat_raster.restype = ctypes.c_int
+        lib.pc_splat_raster.argtypes = [ptr] * 9 + [i32] * 4 + [i64, ptr]
         build_info.update(path=str(lib_path), seconds=seconds)
         _lib = lib
         return _lib

@@ -1,0 +1,7 @@
+"""The viewer application of the port: streaming + camera + rendering,
+headless (counterpart of viewer/__init__.py): ``Viewer.update`` runs the
+per-frame control plane on the host, ``Viewer.render`` the frame on the
+card, and ``offscreen`` writes frames as PNG (``render_orbit``).
+"""
+
+from .app import Viewer, ViewerInput  # noqa: F401

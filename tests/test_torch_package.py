@@ -164,9 +164,21 @@ def test_conversion_pipeline_matches_reference():
 
 
 def test_frame_pipeline_not_ported():
+    """The name is from before the frame path was ported: get_pipeline
+    ("frame") now runs the port's cull_lod_pass (the LOD walk, then the
+    cull) on the reference's inputs and matches the JAX pass exactly."""
+    from point_cloud_tpu.models import get_pipeline as ref_pipeline
     from point_cloud_tpu_torch.models import get_pipeline
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_pipeline("frame", device="cpu")
+    fn, args = get_pipeline("frame", n=1 << 12, seed=2, device="cpu")
+    ref_fn, ref_args = ref_pipeline("frame", n=1 << 12, seed=2)
+    for a, r in zip(args[:10], ref_args[:10]):
+        assert np.array_equal(a.numpy(), np.asarray(r))
+    got = [o.numpy() for o in fn(*args)]
+    ref = [np.asarray(o) for o in ref_fn(*ref_args)]
+    assert len(got) == len(ref) == 3
+    assert np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+    assert np.array_equal(got[2].view(np.int32), ref[2].view(np.int32))
+    assert got[0].sum() > 0
     with pytest.raises(KeyError):
         get_pipeline("nope", device="cpu")
