@@ -31,10 +31,14 @@ use. Imports no JAX. Phases, one JSON line each:
 5. frame: the ``--device-native`` store of phase 4 through the port's
    ``Viewer`` at 1280x720, default settings. 5a captures every bucket of
    one frame and holds the cull kernel (``cull_classify``) and the raster
-   kernel (``splat_raster``) against their plain versions on the card:
-   every K1 output and the framebuffer after each bucket bit-exact, on
-   the frame's buckets and on a synthetic bucket that fills the 9-, 17-,
-   33- and 65-px rungs past their caps. 5b renders the same frame with
+   kernel (``splat_raster``, one launch a bucket) against their plain
+   versions on the card: every K1 output and the framebuffer after each
+   bucket bit-exact, on the frame's buckets and on a synthetic bucket
+   that fills the 9-, 17-, 33- and 65-px rungs past their caps; then the
+   raster alone on three more rankings of the synthetic rows
+   (``EDGE_BUCKETS``: every rung filled with two overflow rungs past
+   their caps, no row at all, one 65-px splat on the frame's corner).
+   5b renders the same frame with
    ``device="cpu"`` and requires the rgb and id planes identical and the
    depth equal by value. 5c zeroes the launch counts and runs
    ``render_orbit`` for 8 frames: ``render`` times, ``render_pipelined``
@@ -48,9 +52,14 @@ kernels' line ``ms`` is the kernel's own device time a call
 event time around the wrapper call (host work between launches
 included), ``plain_ms`` the event time of the plain version, and
 ``bound_ms`` the byte bound at the H100 SXM's 3.35 TB/s (``sort4`` 16 B
-read and 16 B written a row; ``cull_classify`` and ``splat_raster`` as
-``cull_bound_ms`` and ``raster_bound_ms`` say). Any failed phase raises
-and exits non-zero before that line.
+read and 16 B written a row; ``cull_classify`` as ``cull_bound_ms``
+says). ``splat_raster``'s is the larger of its byte bound
+(``raster_bound_ms``) and its instruction bound (``raster_instr_bound_ms``: the
+fragments it lights and those it only tests, each times its instructions
+a fragment, over the card's lanes at the clock ``nvidia-smi`` reports
+under the kernel's load); the ``raster_bound`` line before it prints both,
+and the kernel's device time on the synthetic bucket (``synthetic_ms``). Any failed phase raises and
+exits non-zero before that line.
 The script imports nothing of ``jax``, of ``point_cloud_tpu`` or of
 ``bench.py``.
 """
@@ -354,6 +363,23 @@ ORBIT_FRAMES = 8
 SYNTH_BANDS = {9: (4.05, 4.45), 17: (5.0, 8.0), 33: (9.0, 16.0),
                65: (20.0, 40.0)}
 SYNTH_ROWS = 4096  # per band: above the 33 and 65 rungs' caps at 2^14
+# rankings of the synthetic rows that the raster alone is held on
+EDGE_BUCKETS = ("filled", "empty", "corner")
+# SASS instructions of csrc/splat.cu that one tested fragment costs a lane,
+# counted in one trip of raster_unit's loop over window rows as ``cuobjdump
+# -sass`` shows it (the voronoi copy of the loop; count them again after a
+# change to that loop). A fragment outside the circle or off the screen
+# takes 12: UMOV, VIADD, BRA.DIV, SHFL x2, LOP3, FADD, BSSY, ISETP, FSETP,
+# BRA, BSYNC. A lit fragment that loses the early-out read takes 38: the
+# first 11 of those, then FADD, BSSY, FMUL, FADD (the moved depth), MUFU.RCP,
+# FFMA x2, FMUL, FADD, FCHK, FFMA x3, BRA, BSYNC (the IEEE divide), FSETP x2,
+# BRA (depth in [0, 1]), LDC, IMAD.IADD, IMAD.WIDE, LDG, LOP3, ISETP x2, BRA
+# (the read and the compare), BSYNC. A winner's two moves and its atomic,
+# the loop's counter and a row's set-up are left out: the bound stays below
+# what any run needs.
+K2_INSTR_LIT = 38
+K2_INSTR_REJECTED = 12
+LANES_PER_SM = 128
 
 
 def settle(viewer, limit: int = 4000) -> None:
@@ -554,7 +580,7 @@ def cull_bound_ms(n: int, inside: int, occlusion: bool, pyramid: bool,
 
 
 def raster_bound_ms(rows: int, touched: int) -> float:
-    """Least time for one bucket's K2 launches, in bytes at the HBM rate:
+    """Least time for one bucket's K2 launch, in bytes at the HBM rate:
     each rastered row reads its perm entry, view_pos.z, ndc, radius and id
     (28 B), and each framebuffer word that a lit fragment lands on is read
     once and written once (2 * 8 B * ``touched`` distinct pixels, at most
@@ -562,6 +588,121 @@ def raster_bound_ms(rows: int, touched: int) -> float:
     the card's 50 MB L2, which holds the plane (7.4 MB at 1280x720), so
     they are not charged to HBM."""
     return (28 * rows + 16 * touched) / HBM_BYTES_PER_S * 1e3
+
+
+def raster_instr_bound_ms(tested: int, lit: int, sms: int,
+                          clock_mhz: float) -> float:
+    """Least time for one bucket's K2 launch, in instruction slots. Of the
+    ``tested`` fragments (the sum of count * k * k over the bucket's
+    segments) the ``lit`` ones (inside the circle, on screen, depth in
+    [0, 1]) cost K2_INSTR_LIT each and the others K2_INSTR_REJECTED, over
+    the card's lanes (``sms`` x 128, one instruction a lane a cycle) at
+    ``clock_mhz``."""
+    slots = lit * K2_INSTR_LIT + (tested - lit) * K2_INSTR_REJECTED
+    return slots / (sms * LANES_PER_SM * clock_mhz * 1e6) * 1e3
+
+
+def segment_rows(splat, inp) -> list:
+    """(segment, its row count) for each of the bucket's segments (reads
+    the counts)."""
+    segs = splat.bucket_segments(inp["rungs"], inp["footprint"],
+                                 inp["view_pos"].shape[0])
+    return [(seg, int(splat.segment_bounds(seg, inp["offsets"],
+                                           inp["counts"])[1])) for seg in segs]
+
+
+def tested_fragments(splat, inp) -> int:
+    """count * k * k summed over the bucket's segments."""
+    return sum(seg.k * seg.k * rows for seg, rows in segment_rows(splat, inp))
+
+
+def sm_clock_under_load(torch, fn, seconds: float = 1.5) -> float:
+    """The SM clock in MHz that nvidia-smi reports while ``fn`` keeps the
+    card busy: a thread calls it for ``seconds``, the query runs in its
+    second half."""
+    import threading
+
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            for _ in range(64):
+                fn()
+            torch.cuda.synchronize()
+
+    worker = threading.Thread(target=load)
+    worker.start()
+    try:
+        time.sleep(seconds / 2)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout
+    finally:
+        stop.set()
+        worker.join()
+    return float(out.strip().splitlines()[0])
+
+
+def edge_bucket(torch, splat, inp: dict, name: str) -> dict:
+    """The synthetic bucket's rows under another ranking (the raster clips
+    a splat to whatever window its rung gives it). ``filled``: every rung
+    holds rows, the 33 and 65 rungs beyond their caps; ``empty``: no row
+    in any rung; ``corner``: one row, in the 65 rung, centred on the
+    frame's first pixel."""
+    n, rungs = inp["view_pos"].shape[0], inp["rungs"]
+    out = dict(inp)
+    if name == "filled":
+        i33, i65 = rungs.index(33), rungs.index(65)
+        rest = [j for j in range(len(rungs)) if j not in (i33, i65)]
+        rung = torch.tensor(rest, dtype=torch.int32, device="cuda")[
+            torch.arange(n, device="cuda") % len(rest)]
+        rung[:3000] = i33
+        rung[3000:4000] = i65
+    else:
+        rung = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+        if name == "corner":
+            row = n - 7  # one of the widest band's rows
+            rung[row] = rungs.index(65)
+            out["ndc"] = inp["ndc"].clone()
+            out["ndc"][row, 0], out["ndc"][row, 1] = -1.0, 1.0
+    out["perm"], out["counts"], out["offsets"] = splat.compact_classes(
+        rung, len(rungs))
+    return out
+
+
+def check_edge_bucket(torch, splat, inp: dict, name: str) -> dict:
+    """The one-launch kernel against the plain loop on an edge bucket,
+    from a clear plane: the words equal."""
+    fb_k = splat.make_framebuffer(inp["height"], inp["width"], "cuda").packed
+    fb_p = fb_k.clone()
+    before = splat.launches
+    run_rungs(splat, fb_k, inp, None)
+    if splat.launches != before + 1:
+        raise AssertionError("a bucket's raster is one launch")
+    run_rungs(splat, fb_p, inp, splat.splat_raster_reference)
+    torch.cuda.synchronize()
+    got, ref = splat.Framebuffer(fb_k), splat.Framebuffer(fb_p)
+    err = max(abs_err(torch, got.depth, ref.depth),
+              abs_err(torch, got.point_id, ref.point_id))
+    if not torch.equal(fb_k, fb_p):
+        raise AssertionError(f"edge bucket {name}: kernel != plain: "
+                             f"max abs err {err}")
+    counts = inp["counts"].tolist()
+    rows = segment_rows(splat, inp)
+    lit = int((fb_k != splat._CLEAR_WORD).sum())
+    tails = sum(1 for seg, r in rows if seg.tail and r > 0)
+    if name == "filled" and (min(counts) == 0 or tails != 2):
+        raise AssertionError(f"edge bucket filled: counts {counts}, "
+                             f"{tails} tails")
+    if name == "empty" and (sum(counts) or lit):
+        raise AssertionError("edge bucket empty drew something")
+    if name == "corner" and (sum(counts) != 1 or lit < 50
+                             or int(fb_k[0]) == splat._CLEAR_WORD):
+        raise AssertionError(f"edge bucket corner: {lit} lit pixels")
+    return {"name": name, "rung_counts": counts,
+            "segment_rows": [r for _, r in rows], "lit_pixels": lit,
+            "raster_err": err}
 
 
 def busy_share(torch, fn) -> dict:
@@ -595,7 +736,7 @@ def busy_share(torch, fn) -> dict:
             "top_device_ms": dict(top)}
 
 
-def host_profile(fn, top: int = 10) -> dict:
+def host_profile(fn, top: int = 14) -> dict:
     """Run ``fn`` once under cProfile: the host functions with the most
     cumulative time, in ms."""
     import cProfile
@@ -656,8 +797,12 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
         if rows == 0 or (k in (33, 65) and rows <= cap):
             raise AssertionError(f"the synthetic bucket missed rung {k}: "
                                  f"{rows} rows, cap {cap}")
+    synth_inp = raster_inputs(splat, kernel, synth_fb, synth_args, synth_kw)
+    edges = [check_edge_bucket(torch, splat,
+                               edge_bucket(torch, splat, synth_inp, name), name)
+             for name in EDGE_BUCKETS]
     emit({"phase": "frame_kernels", "ok": True, "exact": True,
-          "buckets": buckets, "synthetic": synth})
+          "buckets": buckets, "synthetic": synth, "edge_buckets": edges})
 
     # 5b: the same frame on the CPU, through the plain versions
     t0 = time.perf_counter()
@@ -693,11 +838,22 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     inp = raster_inputs(splat, kernel, *big)
     fb_big = big[0].clone()
     raster_t = time_kernel(
-        torch, lambda: run_rungs(splat, fb_big, inp, splat.splat_raster),
+        torch, lambda: run_rungs(splat, fb_big, inp, None),
         lambda: run_rungs(splat, fb_big, inp, splat.splat_raster_reference),
         ("splat_raster_kernel",), plain_reps=2,
         setup=lambda: fb_big.copy_(big[0]))
+    # the large windows' time: the synthetic bucket, each run from its own
+    # plane
+    fb_synth = synth_fb.clone()
+    synth_ms = device_kernel_ms(
+        torch, lambda: (fb_synth.copy_(synth_fb),
+                        run_rungs(splat, fb_synth, synth_inp, None)),
+        ("splat_raster_kernel",))
     frags, touched = lit_fragments(torch, splat, inp)
+    tested = tested_fragments(splat, inp)
+    clock_mhz = sm_clock_under_load(
+        torch, lambda: run_rungs(splat, fb_big, inp, None))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_big = int(big[1][0].shape[0])
     # the points K1's occlusion tests read the depth for: valid, inside
     # the NDC box
@@ -727,6 +883,8 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
                 "splat_raster": splat.launches}
     if len(paths) != ORBIT_FRAMES or min(launches.values()) <= 0:
         raise AssertionError(f"the orbit did not run its kernels: {launches}")
+    if launches["splat_raster"] != launches["cull_classify"]:
+        raise AssertionError(f"not one raster launch a bucket: {launches}")
     frame = render()
     if frame[0].shape != (FRAME_H, FRAME_W, 3) or frame[0].dtype != np.uint8:
         raise AssertionError("orbit frame shape")
@@ -759,18 +917,28 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
         "phase_s": time.perf_counter() - t_phase,
     }
     emit(result)
-    checked = buckets + [synth]
+    checked = buckets + [synth] + edges
+    bytes_ms = raster_bound_ms(inp["kept"], touched)
+    instr_ms = raster_instr_bound_ms(tested, frags, sms, clock_mhz)
     return {
         "frame": result,
         "cull": {**cull_t, "n": n_big, "inside": inside,
-                 "max_abs_err": max(b["cull_err"] for b in checked),
+                 "max_abs_err": max(b["cull_err"] for b in buckets + [synth]),
                  "bound_ms": cull_bound_ms(
                      n_big, inside, big[2]["use_occlusion"],
                      big[2]["use_pyramid"], FRAME_H * FRAME_W, coarse_cells)},
         "raster": {**raster_t, "n": n_big, "rows": inp["kept"],
                    "fragments": frags, "touched_pixels": touched,
+                   "tested_fragments": tested, "sms": sms,
+                   "synthetic_ms": synth_ms,
+                   "synthetic_tested_fragments": tested_fragments(
+                       splat, synth_inp),
+                   "sm_clock_mhz_under_load": clock_mhz,
                    "max_abs_err": max(b["raster_err"] for b in checked),
-                   "bound_ms": raster_bound_ms(inp["kept"], touched)},
+                   "bytes_bound_ms": bytes_ms, "instr_bound_ms": instr_ms,
+                   "bound_ms": max(bytes_ms, instr_ms),
+                   "bound_by": ("bytes" if bytes_ms >= instr_ms
+                                else "operations")},
     }
 
 
@@ -821,6 +989,13 @@ def main() -> int:
     if pulled:
         raise AssertionError(f"the port pulled in {pulled[:5]}")
 
+    emit({"phase": "raster_bound", **{k: framed["raster"][k] for k in (
+        "rows", "touched_pixels", "tested_fragments", "fragments", "sms",
+        "sm_clock_mhz_under_load", "bytes_bound_ms", "instr_bound_ms",
+        "bound_ms", "bound_by", "synthetic_ms",
+        "synthetic_tested_fragments")},
+        "instructions_per_lit_fragment": K2_INSTR_LIT,
+        "instructions_per_rejected_fragment": K2_INSTR_REJECTED})
     print(smi)
     main_n = 1 << MAIN_LOG_N
     bound_ms, bound_by = sort4_bound_ms(main_n)
@@ -873,16 +1048,19 @@ def main() -> int:
         "max_abs_err": raster["max_abs_err"],
         "ms": raster["ms"], "wrapper_ms": raster["wrapper_ms"],
         "plain_ms": raster["plain_ms"],
-        "bound_ms": raster["bound_ms"], "bound_by": "bytes",
+        "bound_ms": raster["bound_ms"], "bound_by": raster["bound_by"],
+        "bytes_bound_ms": raster["bytes_bound_ms"],
+        "instr_bound_ms": raster["instr_bound_ms"],
         # no single PyTorch call expands splats into fragments; the
         # scatter_reduce_ of the plain version is only its last step
         "library_ms": None,
         "n": raster["n"], "rows": raster["rows"],
         "fragments": raster["fragments"],
+        "tested_fragments": raster["tested_fragments"],
         "touched_pixels": raster["touched_pixels"],
         "ms_runs": raster["ms_runs"],
         "plain_ms_runs": raster["plain_ms_runs"],
-        "unit": "all raster launches of the frame's largest bucket",
+        "unit": "the one raster launch of the frame's largest bucket",
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

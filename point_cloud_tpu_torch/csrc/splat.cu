@@ -1,44 +1,80 @@
-// splat.cu — the splat raster of one window rung (K2), for Hopper (sm_90a).
+// splat.cu — the splat raster of one bucket (K2), for Hopper (sm_90a).
 //
 // Replaces the reference's per-rung raster, point_cloud_tpu/render/splat.py:
-// _make_fragments (:187-259), _rasterize_body (:262-298) and the chunk loop
-// _raster_rung_chunked (:614-653). The reference runs them in XLA (no
-// Pallas kernel): a k x k fragment expansion, a scatter-min of f32 depth,
-// a gather and a masked scatter-min of point ids, looped over fixed-size
-// chunks under a lax.while_loop whose trip count is a device value.
+// _make_fragments (:187-259), _rasterize_body (:262-298), the chunk loop
+// _raster_rung_chunked (:614-653) and the rung loop that calls it
+// (:752-785). The reference runs them in XLA (no Pallas kernel): a k x k
+// fragment expansion, a scatter-min of f32 depth, a gather and a masked
+// scatter-min of point ids, looped over fixed-size chunks under a
+// lax.while_loop whose trip count is a device value, once a window rung.
 //
-// One launch rasters one rung: rows perm[start + i] for i < count, where
-// start and count are read from device memory, so the host never waits
-// for the cull's counts. A grid-stride loop gives one thread per row; the
-// thread gathers the row's view_pos.z, ndc, radius and id and walks its
-// k x k window: odd k centres on rint(center) (round half to even, as
-// jnp.round), even k bases on floor(center). A fragment is kept when it
-// lies inside the projected circle, on screen, and at a depth in [0, 1];
-// its depth is the point's ndc.z (flat) or the reprojected paraboloid
-// (voronoi). The arithmetic is the reference's, in its order, with
-// explicit _rn intrinsics so nvcc never fuses a multiply-add.
+// One launch rasters every segment of a bucket. A segment is a run of
+// perm rows drawn through one k x k window: a rung's region, capped for
+// an overflow rung, or the tail beyond that cap, drawn through the
+// footprint window. The table of segments (window, rung, cap, tail flag)
+// comes by value; the rungs' counts and offsets are read from device
+// memory, so the host never waits for the cull's counts.
+//
+// Work is cut into units of fragments, not rows. The lanes of a warp lie
+// along the columns of the window: a group of k lanes draws one row
+// (floor(32 / k) rows a warp at once; one row and one 32-column pass of
+// it when k > 32), through a slab of at most 16 window rows, so a 65 x 65
+// splat is fifteen units of 13 rows by 32 columns, each spread over a
+// whole warp. A unit of a small window holds several such row batches
+// (up to 32 rows, near 1024 fragments): every lane first sets one row up
+// (its loads, pixel centre and radii: half of a small window's
+// instructions when each group did it for itself), and each batch fetches
+// its rows' values with shuffles. Every block computes the units' prefix
+// sum from the device counts (64-bit) and its warps stride over the unit
+// index space: the grid is persistent, sized by the occupancy the card
+// reports.
+//
+// A lane computes nx for its column once a batch, and ny for one window
+// row of the slab; the loop over the slab's rows fetches ny * ny and the
+// pixel row with two shuffles. These are the reference's operations on
+// the reference's operands, so d2 and everything after it keep their
+// bits: odd k centres on rint(center) (round half to even, as jnp.round),
+// even k bases on floor(center); a fragment is kept when it lies inside
+// the projected circle, on screen, and at a depth in [0, 1]; its depth is
+// the point's ndc.z (flat) or the reprojected paraboloid (voronoi); every
+// operation is an explicit _rn intrinsic, so nvcc fuses no multiply-add.
 //
 // The depth test is one 64-bit atomicMin on the framebuffer word
 // depth_bits << 32 | id: depths are in [0, 1], where the bits order like
 // the values, so the minimum word is the nearest fragment and, among equal
 // depths, the smallest id: the reference's two scatter-mins in one atomic.
 // -0.0 is mapped to +0.0 first (its bits would sort after every positive
-// depth). The minimum does not depend on the order of the atomics, so the
-// frame is deterministic, and equal to the reference's chunk by chunk.
+// depth). A minimum does not depend on the order of segments, rows or
+// fragments, so the frame is deterministic and equal to the reference's.
+// A read of the word before the atomic skips the losing fragments; a
+// stale read is safe (the word only falls: at worst a needless atomic).
 //
-// What bounds it: a thread per row with k*k serial fragments is bound by
-// latency and load balance, not bytes: a row reads 28 B (perm entry,
-// view_pos.z, ndc, radius, id), and the 64-bit atomics land on a
-// framebuffer that the 50 MB L2 holds (7.4 MB at 1280x720), so HBM sees
-// each touched word about once (chip_smoke.py raster_bound_ms). A read of
-// the word before the atomic skips most losing fragments.
+// What bounds it: instruction slots and the atomics, not bytes. A row
+// reads 28 B and the plane (7.4 MB at 1280x720) lives in the 50 MB L2, so
+// HBM sees each touched word about once (chip_smoke.py raster_bound_ms);
+// the lanes of a group touch neighbouring words, so a window row is one
+// or two 32-byte sectors. There is no tile to stage and no matrix product: TMA
+// and wgmma have no work here. What the card gives this kernel is
+// occupancy, L2 residency and warp shuffles.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;  // a grid-stride loop covers the rest
+constexpr int kMinBlocks = 6;  // blocks a SM: 40 registers a thread
+constexpr int kMaxSegments = 32;
+constexpr int kMaxWindow = 128;  // four column passes of 32 lanes
+constexpr int kSlabRows = 16;    // most window rows a unit
+constexpr int kUnitFragments = 1024;  // a unit's size where rows allow
+
+struct Segments {
+  int n;
+  int k[kMaxSegments];     // window
+  int rung[kMaxSegments];  // index into counts and offsets
+  int cap[kMaxSegments];   // rows the rung draws through its own window
+  int tail[kMaxSegments];  // 1: the rows beyond cap; 0: the rows up to it
+};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -51,83 +87,265 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return a > b ? a : b;
 }
 
-__global__ void __launch_bounds__(kThreads) splat_raster_kernel(
-    unsigned long long* __restrict__ fb, const float* __restrict__ view_pos,
-    const float* __restrict__ ndc, const float* __restrict__ radius,
-    const int* __restrict__ point_id, const int* __restrict__ perm,
-    const int* __restrict__ start_p, const int* __restrict__ count_p,
-    const float* __restrict__ proj, int width, int height, int k, int voronoi) {
-  const long long start = *start_p;
-  const long long count = *count_p;
-  const float p00 = proj[0], p11 = proj[5], p22 = proj[10], p23 = proj[11];
-  const float eps = static_cast<float>(1e-6);
-  const float half_w = static_cast<float>(0.5 * width);
-  const float half_h = static_cast<float>(0.5 * height);
-  const int half = (k % 2) ? (k - 1) / 2 : k / 2 - 1;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < count; i += stride) {
-    const long long r = perm[start + i];
-    const float vz = view_pos[4 * r + 2];
-    const float n0 = ndc[3 * r], n1 = ndc[3 * r + 1], n2 = ndc[3 * r + 2];
-    const float rad = radius[r];
-    const unsigned id = static_cast<unsigned>(point_id[r]);
+struct Frame {
+  unsigned long long* fb;
+  const float* view_pos;
+  const float* ndc;
+  const float* radius;
+  const int* point_id;
+  float p00, p11, p22, p23;
+  int width, height, voronoi;
+};
 
-    const float px = mul(add(mul(n0, 0.5f), 0.5f), static_cast<float>(width));
-    const float py = mul(add(mul(n1, -0.5f), 0.5f), static_cast<float>(height));
-    const float w_clip = max_nan(-vz, eps);
-    const float rx = max_nan(mul(dvd(mul(rad, p00), w_clip), half_w), eps);
-    const float ry = max_nan(mul(dvd(mul(rad, p11), w_clip), half_h), eps);
+// The shape of a segment's units, from its window alone.
+struct Shape {
+  int k;
+  int group;      // lanes a row: min(k, 32)
+  int rpw;        // rows a warp draws at once: 32 / group
+  int batches;    // such row batches a unit
+  int passes;     // 32-column passes of the window
+  int tiles;      // slabs x passes
+  int slab_rows;  // window rows a slab
+};
+
+__device__ __forceinline__ Shape shape_of(int k) {
+  Shape s;
+  s.k = k;
+  s.group = k <= 32 ? k : 32;
+  s.rpw = 32 / s.group;
+  // a unit sets up to 32 rows up at once, one a lane, as long as it stays
+  // near kUnitFragments: small windows share the set-up, large ones keep
+  // many units
+  const int fit = kUnitFragments / (s.rpw * k * k);
+  s.batches = max(1, min(32 / s.rpw, fit));
+  s.passes = (k + 31) / 32;
+  const int slabs = (k + kSlabRows - 1) / kSlabRows;
+  s.tiles = slabs * s.passes;
+  s.slab_rows = (k + slabs - 1) / slabs;
+  return s;
+}
+
+// One unit: rows [first_row, first_row + rpw * batches) of the segment
+// ``rows`` (count of them), window rows [slab * slab_rows, ...) and window
+// columns [32 * pass, ...) of the k x k window. Every lane first sets up
+// one row of the unit; then the warp draws rpw rows at a time, a lane
+// fetching the row of its group (``sub_row``) with shuffles and taking the
+// window column ``col``; lanes with sub_row >= rpw draw nothing.
+__device__ __forceinline__ void raster_unit(
+    const Frame& f, const int* __restrict__ rows, long long count,
+    long long first_row, int slab, int pass, const Shape& sh, int sub_row,
+    int col) {
+  const int k = sh.k;
+  const int lane = threadIdx.x % 32;
+  const int half = (k % 2) ? (k - 1) / 2 : k / 2 - 1;
+  const long long left = count - first_row;  // >= 1 rows from first_row on
+  // this lane's row (a valid one to load even where the unit has none for
+  // it). Every lane sets a row up, though a large window's unit draws one:
+  // leaving the idle lanes out measured 1% slower on a frame's bucket and
+  // no faster on 33- and 65-px windows
+  const long long r = rows[first_row + (lane < left ? lane : left - 1)];
+  const float my_vz = f.view_pos[4 * r + 2];
+  const float n0 = f.ndc[3 * r], n1 = f.ndc[3 * r + 1];
+  const float my_n2 = f.ndc[3 * r + 2];
+  const float my_rad = f.radius[r];
+  const unsigned my_id = static_cast<unsigned>(f.point_id[r]);
+  const float eps = static_cast<float>(1e-6);
+  const float my_px =
+      mul(add(mul(n0, 0.5f), 0.5f), static_cast<float>(f.width));
+  const float my_py =
+      mul(add(mul(n1, -0.5f), 0.5f), static_cast<float>(f.height));
+  const float w_clip = max_nan(-my_vz, eps);
+  const float my_rx = max_nan(
+      mul(dvd(mul(my_rad, f.p00), w_clip), static_cast<float>(0.5 * f.width)),
+      eps);
+  const float my_ry = max_nan(
+      mul(dvd(mul(my_rad, f.p11), w_clip), static_cast<float>(0.5 * f.height)),
+      eps);
+
+  const int ix = col + 32 * pass;
+  const int iy0 = slab * sh.slab_rows;
+  const int iy = iy0 + col;
+  const int steps = min(sh.slab_rows, k - iy0);
+  const int first = sub_row * sh.group;  // the lane with the group's row 0
+  for (int b = 0; b < sh.batches; ++b) {
+    const int src = b * sh.rpw + sub_row;  // the lane that set my row up
+    if (b * sh.rpw >= left) break;         // the segment ends in this unit
+    const bool live = sub_row < sh.rpw && src < left;
+    const float px = __shfl_sync(0xffffffffu, my_px, src);
+    const float py = __shfl_sync(0xffffffffu, my_py, src);
+    const float rx = __shfl_sync(0xffffffffu, my_rx, src);
+    const float ry = __shfl_sync(0xffffffffu, my_ry, src);
+    const float vz = __shfl_sync(0xffffffffu, my_vz, src);
+    const float rad = __shfl_sync(0xffffffffu, my_rad, src);
+    const float n2 = __shfl_sync(0xffffffffu, my_n2, src);
+    const unsigned id = __shfl_sync(0xffffffffu, my_id, src);
     const float bx = (k % 2) ? rintf(px) : floorf(px);
     const float by = (k % 2) ? rintf(py) : floorf(py);
 
-    for (int iy = 0; iy < k; ++iy) {
-      const float fy = add(by, static_cast<float>(iy - half));
-      const float ny = dvd(sub(fy, py), ry);
-      const bool row_on = fy >= 0.0f && fy < static_cast<float>(height);
-      for (int ix = 0; ix < k; ++ix) {
-        const float fx = add(bx, static_cast<float>(ix - half));
-        const float nx = dvd(sub(fx, px), rx);
-        const float d2 = add(mul(nx, nx), mul(ny, ny));
-        if (!(d2 <= 1.0f) || !row_on || !(fx >= 0.0f) ||
-            !(fx < static_cast<float>(width)))
-          continue;
+    // this lane's column: nx * nx and the pixel column, -1 when off
+    const float fx = add(bx, static_cast<float>(ix - half));
+    const float nx = dvd(sub(fx, px), rx);
+    const float nx2 = mul(nx, nx);
+    const bool col_on = live && ix < k && fx >= 0.0f &&
+                        fx < static_cast<float>(f.width);
+    const int x = col_on ? __float2int_rz(fx) : -1;
+    // this lane's window row of the slab: ny * ny and the pixel row's
+    // first word in the plane, -1 when off
+    const float fy = add(by, static_cast<float>(iy - half));
+    const float ny = dvd(sub(fy, py), ry);
+    const float my_ny2 = mul(ny, ny);
+    const bool row_on = col < sh.slab_rows && iy < k && fy >= 0.0f &&
+                        fy < static_cast<float>(f.height);
+    const int my_y = row_on ? __float2int_rz(fy) * f.width : -1;
+
+    for (int s = 0; s < steps; ++s) {
+      const float ny2 = __shfl_sync(0xffffffffu, my_ny2, first + s);
+      const int y = __shfl_sync(0xffffffffu, my_y, first + s);
+      const float d2 = add(nx2, ny2);
+      if (d2 <= 1.0f && (x | y) >= 0) {
         float depth = n2;
-        if (voronoi) {
+        if (f.voronoi) {
           // z_view + radius * (1 - |p|^2), reprojected (splat.py:230-238)
           const float moved_z = add(vz, mul(rad, sub(1.0f, d2)));
-          depth = dvd(add(mul(p22, moved_z), p23), -moved_z);
+          depth = dvd(add(mul(f.p22, moved_z), f.p23), -moved_z);
         }
-        if (!(depth >= 0.0f && depth <= 1.0f)) continue;
-        unsigned bits = __float_as_uint(depth);
-        if (bits == 0x80000000u) bits = 0u;  // -0.0 -> +0.0
-        const unsigned long long word =
-            (static_cast<unsigned long long>(bits) << 32) | id;
-        const long long pix =
-            static_cast<long long>(__float2int_rz(fy)) * width + __float2int_rz(fx);
-        if (word < fb[pix]) atomicMin(fb + pix, word);
+        if (depth >= 0.0f && depth <= 1.0f) {
+          // -0.0 -> +0.0: the only value in [0, 1] with the sign bit set
+          const unsigned bits = __float_as_uint(depth) & 0x7fffffffu;
+          const unsigned long long word =
+              (static_cast<unsigned long long>(bits) << 32) | id;
+          unsigned long long* at = f.fb + (y + x);
+          if (word < *at) atomicMin(at, word);
+        }
       }
     }
   }
 }
 
+__global__ void __launch_bounds__(kThreads, kMinBlocks) splat_raster_kernel(
+    unsigned long long* __restrict__ fb, const float* __restrict__ view_pos,
+    const float* __restrict__ ndc, const float* __restrict__ radius,
+    const int* __restrict__ point_id, const int* __restrict__ perm,
+    const int* __restrict__ offsets, const int* __restrict__ counts,
+    const float* __restrict__ proj, int width, int height, int voronoi,
+    const __grid_constant__ Segments segs) {
+  __shared__ long long seg_start[kMaxSegments];
+  __shared__ long long seg_count[kMaxSegments];
+  __shared__ long long unit_end[kMaxSegments];  // inclusive prefix of units
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x < 32) {
+    long long start = 0, count = 0, units = 0;
+    if (lane < segs.n) {
+      const long long cap = segs.cap[lane];
+      const long long c = counts[segs.rung[lane]];
+      start = offsets[segs.rung[lane]];
+      if (segs.tail[lane]) {
+        start += cap;
+        count = c > cap ? c - cap : 0;
+      } else {
+        count = c < cap ? (c > 0 ? c : 0) : cap;
+      }
+      const Shape sh = shape_of(segs.k[lane]);
+      const int unit_rows = sh.rpw * sh.batches;
+      units = (count + unit_rows - 1) / unit_rows * sh.tiles;
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const long long below = __shfl_up_sync(0xffffffffu, units, d);
+      if (lane >= d) units += below;
+    }
+    seg_start[lane] = start;
+    seg_count[lane] = count;
+    unit_end[lane] = units;
+  }
+  __syncthreads();
+
+  Frame f;
+  f.fb = fb;
+  f.view_pos = view_pos;
+  f.ndc = ndc;
+  f.radius = radius;
+  f.point_id = point_id;
+  f.p00 = proj[0];
+  f.p11 = proj[5];
+  f.p22 = proj[10];
+  f.p23 = proj[11];
+  f.width = width;
+  f.height = height;
+  f.voronoi = voronoi;
+
+  const long long total = unit_end[segs.n - 1];
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  int j = -1, next = 0;  // the unit's segment; the first one not yet passed
+  Shape sh = shape_of(1);
+  int sub_row = 0, col = 0;
+  long long base = 0;
+  for (long long u = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+                     threadIdx.x / 32;
+       u < total; u += warps) {
+    while (u >= unit_end[next]) ++next;  // u < total: next < segs.n
+    if (next != j) {
+      j = next;
+      base = j ? unit_end[j - 1] : 0;
+      sh = shape_of(segs.k[j]);
+      sub_row = lane / sh.group;
+      col = lane - sub_row * sh.group;
+    }
+    const long long local = u - base;
+    long long batch = local;  // a window of one tile needs no division
+    int tile = 0;
+    if (sh.tiles > 1) {
+      batch = local / sh.tiles;
+      tile = static_cast<int>(local - batch * sh.tiles);
+    }
+    raster_unit(f, perm + seg_start[j], seg_count[j],
+                batch * (sh.rpw * sh.batches), tile / sh.passes,
+                tile % sh.passes, sh, sub_row, col);
+  }
+}
+
 }  // namespace
 
-// start and count point to int32 values in device memory; max_rows bounds
-// count and sizes the grid. Returns the cudaError_t of the launch.
+// Rasters ``n_segments`` segments in one launch. ``k``, ``rung``, ``cap``
+// and ``tail`` are host arrays of that length: segment s draws rows of
+// perm through a k[s] x k[s] window, from rung[s]'s region [offsets[r],
+// offsets[r] + counts[r]) of device memory: its first min(count, cap[s])
+// rows, or with tail[s] the rows beyond cap[s]. Returns the cudaError_t
+// of the launch.
 extern "C" int pc_splat_raster(unsigned long long* fb, const float* view_pos,
                                const float* ndc, const float* radius,
                                const int* point_id, const int* perm,
-                               const int* start, const int* count,
-                               const float* proj, int width, int height, int k,
-                               int voronoi, long long max_rows, void* stream) {
-  if (k < 1 || width < 1 || height < 1) return cudaErrorInvalidValue;
-  long long blocks = (max_rows + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  splat_raster_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      fb, view_pos, ndc, radius, point_id, perm, start, count, proj, width,
-      height, k, voronoi);
+                               const int* offsets, const int* counts,
+                               const float* proj, int width, int height,
+                               int voronoi, int n_segments, const int* k,
+                               const int* rung, const int* cap,
+                               const int* tail, void* stream) {
+  if (width < 1 || height < 1 || n_segments < 1 || n_segments > kMaxSegments ||
+      static_cast<long long>(width) * height > 0x7fffffffLL)  // int pixel index
+    return cudaErrorInvalidValue;
+  Segments segs;
+  segs.n = n_segments;
+  for (int s = 0; s < kMaxSegments; ++s) {
+    const bool used = s < n_segments;
+    if (used && (k[s] < 1 || k[s] > kMaxWindow || rung[s] < 0 || cap[s] < 0))
+      return cudaErrorInvalidValue;
+    segs.k[s] = used ? k[s] : 1;
+    segs.rung[s] = used ? rung[s] : 0;
+    segs.cap[s] = used ? cap[s] : 0;
+    segs.tail[s] = used ? tail[s] : 0;
+  }
+  // a full persistent grid on the current device
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, splat_raster_kernel, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  splat_raster_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      fb, view_pos, ndc, radius, point_id, perm, offsets, counts, proj, width,
+      height, voronoi, segs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -127,7 +127,7 @@ def load_kernels():
             [ptr] * 8 + [i32, i32, ptr, ptr, i32, ptr, i32, i32, i32]
             + [ptr] * 7 + [i64, ptr])
         lib.pc_splat_raster.restype = ctypes.c_int
-        lib.pc_splat_raster.argtypes = [ptr] * 9 + [i32] * 4 + [i64, ptr]
+        lib.pc_splat_raster.argtypes = [ptr] * 9 + [i32] * 4 + [ptr] * 5
         build_info.update(path=str(lib_path), seconds=seconds)
         _lib = lib
         return _lib

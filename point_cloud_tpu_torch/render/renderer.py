@@ -45,7 +45,9 @@ SMALL_WINDOWS = (1, 3, 5, 7)
 @dataclass
 class RenderSettings:
     """The reference's settings (renderer.py:78-197), every field with the
-    same default; see there for each knob's measured rationale."""
+    same default; see there for each knob's measured rationale. The raster
+    kernel draws windows of at most ``splat.MAX_WINDOW`` pixels: the ladder
+    ends at 65, so only a ``footprint`` above that limit is refused."""
 
     width: int = 1280
     height: int = 720
@@ -70,7 +72,11 @@ class RenderSettings:
 
 
 def check_ported(settings: RenderSettings) -> None:
-    """Raise for a setting whose render arm the port does not have."""
+    """Raise for a setting whose render arm the port does not have, or a
+    footprint wider than the raster kernel's largest window."""
+    if settings.footprint > splat.MAX_WINDOW:
+        raise ValueError(f"footprint {settings.footprint}: the raster kernel "
+                         f"draws windows of at most {splat.MAX_WINDOW} pixels")
     unported = {
         "megakernel=False": not settings.megakernel,
         "chunked_raster=False": not settings.chunked_raster,

@@ -10,16 +10,21 @@ smallest id, splat.py:262-298) in one comparison. The clear word is
   window-rung regions of one permutation, with device-side counts and
   offsets and no host sync (one flat ``cumsum``, a ``gather`` and a
   ``scatter_``).
-- :func:`splat_raster` rasters one rung's region: rows ``perm[start +
-  i]`` for ``i < count``, ``start`` and ``count`` read from device
-  memory. On a CUDA tensor it launches the hand-written kernel
-  ``csrc/splat.cu`` (one 64-bit ``atomicMin`` a fragment), or raises; on
-  a CPU tensor it runs :func:`splat_raster_reference`, its plain twin,
+- :func:`splat_raster_segments` is K2, the raster of one bucket: every
+  :class:`Segment` of :func:`bucket_segments` (a rung's region of
+  ``perm`` through its own window, capped for an overflow rung, or the
+  tail beyond that cap through the footprint window), the rungs' counts
+  and offsets read from device memory. On a CUDA tensor it is one launch
+  of the hand-written kernel ``csrc/splat.cu`` (lanes along the window's
+  columns, one 64-bit ``atomicMin`` a lit fragment), or it raises; on a
+  CPU tensor it runs :func:`splat_raster_segments_reference`, its plain
+  twin: a loop over the segments on :func:`splat_raster_reference`,
   which expands the fragments with torch ops in the reference's order
   and ``scatter_reduce_(..., "amin")``s them chunk by chunk.
+  :func:`splat_raster` is the same kernel on one segment.
 - :func:`render_bucket_pass` is the chunked arm of the reference's
-  bucket megakernel (splat.py:656-789): the cull (K1), the rung ranking,
-  one raster per rung and one per overflow rung's capped tail.
+  bucket megakernel (splat.py:656-789): the cull (K1), the rung ranking
+  and the raster of the bucket's segments (K2).
 - :func:`resolve_framebuffer` and :func:`pack_frame` turn the plane into
   the frame the host reads.
 
@@ -28,6 +33,7 @@ smallest id, splat.py:262-298) in one comparison. The clear word is
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -189,19 +195,86 @@ def splat_raster_reference(fb, view_pos, ndc, radius, point_id, perm, start,
     return fb
 
 
-def splat_raster(fb, view_pos, ndc, radius, point_id, perm, start, count,
-                 projection, height: int, width: int, k: int, voronoi: bool,
-                 chunk_rows: int):
-    """K2: :func:`splat_raster_reference`'s function, launched as the
-    ``csrc/splat.cu`` kernel on a CUDA tensor (no fallback) and run as the
-    plain version on a CPU tensor. ``start`` and ``count`` are one-element
-    int32 tensors; on the card the kernel reads them itself."""
+class Segment(NamedTuple):
+    """One run of ``perm`` rows drawn through one k x k window: rung
+    ``rung``'s region, its first ``cap`` rows (``tail`` False) or the rows
+    beyond them (``tail`` True)."""
+
+    k: int
+    rung: int
+    cap: int
+    tail: bool
+
+
+NO_CAP = 1 << 30  # the cap of a rung that has none
+MAX_SEGMENTS = 32  # csrc/splat.cu kMaxSegments
+MAX_WINDOW = 128  # csrc/splat.cu kMaxWindow
+
+
+def bucket_segments(rungs: tuple, footprint: int, n: int) -> tuple:
+    """The segments of one bucket of ``n`` rows (splat.py:752-785): each
+    rung's region through its own window, footprint rung first, an
+    overflow rung (k > footprint) capped at rung_chunk_rows(k, n) *
+    RUNG_CAP_CHUNKS rows; then each overflow rung's tail beyond its cap
+    through the footprint window."""
+    fp_i = rungs.index(footprint)
+    caps = [rung_chunk_rows(k, n) * RUNG_CAP_CHUNKS if k > footprint
+            else NO_CAP for k in rungs]
+    order = [fp_i] + [j for j in range(len(rungs)) if j != fp_i]
+    segs = [Segment(rungs[j], j, caps[j], False) for j in order]
+    segs += [Segment(footprint, j, caps[j], True)
+             for j, k in enumerate(rungs) if k > footprint]
+    return tuple(segs)
+
+
+def segment_bounds(seg: Segment, offsets, counts):
+    """(start, count) of a segment as one-element i32 tensors on the
+    rungs' device; nothing waits for the host."""
+    start = offsets[seg.rung : seg.rung + 1]
+    count = counts[seg.rung : seg.rung + 1]
+    if seg.tail:
+        return start + seg.cap, torch.clamp_min(count - seg.cap, 0)
+    return start, torch.clamp_max(count, seg.cap)
+
+
+def splat_raster_segments_reference(fb, view_pos, ndc, radius, point_id, perm,
+                                    offsets, counts, projection, height: int,
+                                    width: int, segments: tuple,
+                                    voronoi: bool, raster=None):
+    """Plain version of K2 for a bucket: ``raster`` (default
+    :func:`splat_raster_reference`) once a segment, each with its window
+    and the reference's chunk size. The plane is a minimum, so the order
+    of the segments does not show in it."""
+    raster = raster or splat_raster_reference
+    n = view_pos.shape[0]
+    for seg in segments:
+        start, count = segment_bounds(seg, offsets, counts)
+        raster(fb, view_pos, ndc, radius, point_id, perm, start, count,
+               projection, height, width, seg.k, voronoi,
+               rung_chunk_rows(seg.k, n))
+    return fb
+
+
+def _segment_table(segments: tuple):
+    """The segments as the four int arrays ``pc_splat_raster`` takes."""
+    return tuple((ctypes.c_int * len(segments))(*(int(v) for v in col))
+                 for col in zip(*segments))
+
+
+def splat_raster_segments(fb, view_pos, ndc, radius, point_id, perm, offsets,
+                          counts, projection, height: int, width: int,
+                          segments: tuple, voronoi: bool):
+    """K2: raster every :class:`Segment` of a bucket into the (H*W,) int64
+    plane ``fb``, in place. ``offsets`` and ``counts`` are the rungs' (R,)
+    i32 device tensors. On a CUDA tensor one launch of the ``csrc/splat.cu``
+    kernel, which reads them itself (no fallback); on a CPU tensor the
+    plain version, :func:`splat_raster_segments_reference`."""
     global launches
     dev = fb.device
     if dev.type == "cpu":
-        return splat_raster_reference(
-            fb, view_pos, ndc, radius, point_id, perm, start, count,
-            projection, height, width, k, voronoi, chunk_rows)
+        return splat_raster_segments_reference(
+            fb, view_pos, ndc, radius, point_id, perm, offsets, counts,
+            projection, height, width, segments, voronoi)
     if dev.type != "cuda":
         raise ValueError(f"splat_raster runs on cuda or cpu, not {dev}")
     expect = ((fb, torch.int64, (height * width,)),
@@ -210,7 +283,8 @@ def splat_raster(fb, view_pos, ndc, radius, point_id, perm, start, count,
               (radius, torch.float32, (view_pos.shape[0],)),
               (point_id, torch.int32, (view_pos.shape[0],)),
               (perm, torch.int32, (perm.shape[0],)),
-              (start, torch.int32, (1,)), (count, torch.int32, (1,)),
+              (offsets, torch.int32, (counts.shape[0],)),
+              (counts, torch.int32, (counts.shape[0],)),
               (projection, torch.float32, (4, 4)))
     for t, dtype, shape in expect:
         if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
@@ -218,40 +292,47 @@ def splat_raster(fb, view_pos, ndc, radius, point_id, perm, start, count,
             raise ValueError(
                 f"splat_raster takes {dtype} {shape} contiguous tensors on "
                 f"{dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if k < 1:
-        raise ValueError(f"window k must be >= 1, got {k}")
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"1 to {MAX_SEGMENTS} segments a launch, got "
+                         f"{len(segments)}")
+    for seg in segments:
+        if (not 1 <= seg.k <= MAX_WINDOW or seg.cap < 0
+                or not 0 <= seg.rung < counts.shape[0]):
+            raise ValueError(f"the kernel takes windows of 1 to {MAX_WINDOW}, "
+                             f"caps >= 0 and rungs below {counts.shape[0]}; "
+                             f"got {seg}")
     from ..ops.runtime import load_kernels
 
     lib = load_kernels()
+    ks, rungs, caps, tails = _segment_table(segments)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pc_splat_raster(
             fb.data_ptr(), view_pos.data_ptr(), ndc.data_ptr(),
             radius.data_ptr(), point_id.data_ptr(), perm.data_ptr(),
-            start.data_ptr(), count.data_ptr(), projection.data_ptr(),
-            width, height, k, int(bool(voronoi)), view_pos.shape[0], stream)
+            offsets.data_ptr(), counts.data_ptr(), projection.data_ptr(),
+            width, height, int(bool(voronoi)), len(segments), ks, rungs,
+            caps, tails, stream)
     if rc != 0:
         raise RuntimeError(f"pc_splat_raster launch failed: cudaError {rc}")
     launches += 1
     return fb
 
 
-_caps_cache: dict = {}
-
-
-def _rung_caps(rungs: tuple, footprint: int, n: int, device):
-    """(R,) i32 row caps: rung_chunk_rows(k, n) * RUNG_CAP_CHUNKS for an
-    overflow rung, 2^30 (no cap) for the others; uploaded once a key."""
-    key = (rungs, footprint, n, RUNG_CAP_CHUNKS, str(device))
-    caps = _caps_cache.get(key)
-    if caps is None:
-        caps = torch.tensor(
-            [rung_chunk_rows(k, n) * RUNG_CAP_CHUNKS if k > footprint
-             else 1 << 30 for k in rungs], dtype=torch.int32, device=device)
-        if len(_caps_cache) > 64:
-            _caps_cache.pop(next(iter(_caps_cache)))
-        _caps_cache[key] = caps
-    return caps
+def splat_raster(fb, view_pos, ndc, radius, point_id, perm, start, count,
+                 projection, height: int, width: int, k: int, voronoi: bool,
+                 chunk_rows: int):
+    """K2 on one segment: :func:`splat_raster_reference`'s function, as one
+    launch of the bucket kernel on a CUDA tensor (no fallback) and as the
+    plain version on a CPU tensor. ``start`` and ``count`` are one-element
+    int32 tensors; on the card the kernel reads them itself."""
+    if fb.device.type == "cpu":
+        return splat_raster_reference(
+            fb, view_pos, ndc, radius, point_id, perm, start, count,
+            projection, height, width, k, voronoi, chunk_rows)
+    return splat_raster_segments(
+        fb, view_pos, ndc, radius, point_id, perm, start, count, projection,
+        height, width, (Segment(k, 0, NO_CAP, False),), voronoi)
 
 
 def framebuffer_depth(fb: Framebuffer, height: int, width: int):
@@ -274,12 +355,11 @@ def render_bucket_pass(framebuffer: Framebuffer, positions, hier_base, valid,
     (R+1,) i32 device tensor.
 
     ``thresholds`` holds the rungs' k/2 as an (R,) f32 device tensor. The
-    cull reads the running depth (near buckets raster first). Every rung
-    rasters its region of the ranking in one launch with device-side
-    start and count, footprint rung first; an overflow rung rasters at
-    most its cap of rows through its own window, and the rest (its tail)
-    through the footprint window, one more launch. Nothing here waits for
-    the device. ``cull`` and ``raster`` default to K1 and K2; passing
+    cull reads the running depth (near buckets raster first). One K2
+    launch rasters the bucket: every rung's region of the ranking through
+    its own window, an overflow rung at most its cap of rows, and the rest
+    (its tail) through the footprint window. Nothing here waits for the
+    device. ``cull`` and ``raster`` default to K1 and K2; passing
     their plain versions runs the same chain as a twin on any device."""
     cull = cull or kernel.cull_classify
     fb = framebuffer.packed
@@ -306,31 +386,18 @@ def render_bucket_pass(framebuffer: Framebuffer, positions, hier_base, valid,
 def raster_rungs(fb, view_pos, ndc, radius, point_id, perm, counts, offsets,
                  projection, *, height: int, width: int, rungs: tuple,
                  footprint: int, voronoi: bool, raster=None):
-    """The rung rasters of one bucket (splat.py:752-785): each rung's
-    region of ``perm`` through its k x k window, footprint rung first,
-    an overflow rung (k > footprint) capped at rung_chunk_rows(k, n) *
-    RUNG_CAP_CHUNKS rows, and each overflow rung's tail beyond its cap
-    through the footprint window. One ``raster`` call (K2 by default)
-    each, with device-side start and count."""
-    raster = raster or splat_raster
-    n = view_pos.shape[0]
-    caps = _rung_caps(rungs, footprint, n, fb.device)
-    eff = torch.minimum(counts, caps)
-    tail_start = offsets + caps
-    tail_count = torch.clamp_min(counts - caps, 0)
-    fp_i = rungs.index(footprint)
-    for j in [fp_i] + [j for j in range(len(rungs)) if j != fp_i]:
-        k = rungs[j]
-        raster(fb, view_pos, ndc, radius, point_id, perm, offsets[j : j + 1],
-               eff[j : j + 1], projection, height, width, k, voronoi,
-               rung_chunk_rows(k, n))
-    ch_fp = rung_chunk_rows(footprint, n)
-    for j, k in enumerate(rungs):
-        if k > footprint:  # the capped tail, clipped to the footprint
-            raster(fb, view_pos, ndc, radius, point_id, perm,
-                   tail_start[j : j + 1], tail_count[j : j + 1], projection,
-                   height, width, footprint, voronoi, ch_fp)
-    return fb
+    """The rung rasters of one bucket (splat.py:752-785), the segments of
+    :func:`bucket_segments`: by default one K2 call for all of them (one
+    launch on the card); with ``raster``, that function once a segment
+    with device-side start and count, the plain twin's loop."""
+    segments = bucket_segments(rungs, footprint, view_pos.shape[0])
+    if raster is None:
+        return splat_raster_segments(
+            fb, view_pos, ndc, radius, point_id, perm, offsets, counts,
+            projection, height, width, segments, voronoi)
+    return splat_raster_segments_reference(
+        fb, view_pos, ndc, radius, point_id, perm, offsets, counts,
+        projection, height, width, segments, voronoi, raster=raster)
 
 
 def resolve_framebuffer(framebuffer: Framebuffer, colors, height: int,

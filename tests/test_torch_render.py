@@ -13,7 +13,11 @@
 - K2's plain version (``splat_raster_reference``) is bit-exact against a
   NumPy oracle rasterizer (NumPy never fuses) in flat and voronoi mode,
   on odd and even windows, on half-pixel centres (odd windows centre on
-  rint, half to even) and on the -0.0 and tie cases.
+  rint, half to even) and on the -0.0 and tie cases. The bucket raster
+  (every segment in one call, what K2's one launch computes) equals the
+  segment-by-segment loop and the oracle word for word: every rung
+  filled, overflow rungs past their caps with tails, no row at all, a
+  65-px splat on the frame's corner, segments in any order.
 - Whole frames of the port's ``PointRenderer`` on the CPU against the JAX
   ``PointRenderer`` on the same store and camera: at least 99.9% of the
   pixels equal and depth within 1e-6 where the pixels agree. The
@@ -667,6 +671,179 @@ def test_raster_negative_zero_and_ties():
     assert np.float32(planes[0].depth[0]).view(np.int32) == 0  # +0.0 kept
 
 
+# --- K2 on a bucket: all segments in one call ------------------------------
+
+BUCKET_RUNGS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 17, 33, 65)
+BUCKET_FOOTPRINT = 5
+
+
+def raster_bucket(case, seed=5, n=400, w=96, h=64):
+    """Seeded splats with a rung drawn for every row (the raster clips a
+    splat to whatever window its rung gives it), ranked by
+    compact_classes. ``empty``: no row in any rung; ``corner``: one row,
+    in the 65 rung, centred on the frame's first pixel."""
+    view_pos, ndc, radius, ids, proj = splat_rows(seed, n, w, h, 6.0)
+    rng = np.random.default_rng(seed + 1000)
+    rung = rng.integers(-1, len(BUCKET_RUNGS), n).astype(np.int32)
+    if case == "empty":
+        rung[:] = -1
+    elif case == "corner":
+        rung[:] = -1
+        rung[7] = BUCKET_RUNGS.index(65)
+        ndc[7, :2] = (-1.0, 1.0)
+        radius[7] *= 6.0
+    perm, counts, offsets = tsplat.compact_classes(as_t(rung),
+                                                   len(BUCKET_RUNGS))
+    arrays = dict(view_pos=view_pos, ndc=ndc, radius=radius, ids=ids,
+                  proj=proj, rung=rung)
+    return arrays, perm, counts, offsets, (h, w)
+
+
+def bucket_parts(rung, n):
+    """(window, rows) of every segment by the cap's definition: a rung's
+    rows in row order through its own window, an overflow rung's beyond
+    its cap through the footprint window."""
+    parts = []
+    for j, k in enumerate(BUCKET_RUNGS):
+        rows = np.flatnonzero(rung == j)
+        cap = (tsplat.rung_chunk_rows(k, n) * tsplat.RUNG_CAP_CHUNKS
+               if k > BUCKET_FOOTPRINT else len(rows))
+        parts += [(k, rows[:cap]), (BUCKET_FOOTPRINT, rows[cap:])]
+    return parts
+
+
+def run_bucket(a, perm, counts, offsets, h, w, voronoi, fb, **kw):
+    return tsplat.raster_rungs(
+        fb, as_t(a["view_pos"]), as_t(a["ndc"]), as_t(a["radius"]),
+        as_t(a["ids"]), perm, counts, offsets, as_t(a["proj"]), height=h,
+        width=w, rungs=BUCKET_RUNGS, footprint=BUCKET_FOOTPRINT,
+        voronoi=voronoi, **kw)
+
+
+@pytest.mark.parametrize("voronoi", [True, False])
+@pytest.mark.parametrize("case", ["filled", "overflow", "empty", "corner"])
+def test_bucket_raster_matches_segment_loop_and_oracle(case, voronoi,
+                                                       monkeypatch):
+    """The one-call bucket raster (what K2 runs on a CPU tensor) equals,
+    word for word, the segment-by-segment loop on splat_raster_reference
+    composed by hand from the cap's definition, and the NumPy oracle over
+    the same segments: every rung of the even and odd ladder filled;
+    overflow rungs past their caps, with tails; no row at all; and one
+    65-px splat clipped by the frame's corner."""
+    if case == "overflow":  # every overflow rung's cap falls to 8 rows
+        monkeypatch.setattr(tsplat, "RUNG_CHUNK_FRAGS", 256)
+        monkeypatch.setattr(tsplat, "RUNG_CAP_CHUNKS", 1)
+    a, perm, counts, offsets, (h, w) = raster_bucket(case)
+    n = len(a["rung"])
+    if case == "filled":
+        assert (counts > 0).all()
+    if case == "overflow":
+        over = [j for j, k in enumerate(BUCKET_RUNGS) if k > BUCKET_FOOTPRINT]
+        assert (counts[over] > 8).all()
+    fb0 = tsplat.make_framebuffer(h, w).packed
+    got = run_bucket(a, perm, counts, offsets, h, w, voronoi, fb0.clone())
+
+    parts = bucket_parts(a["rung"], n)
+    manual = fb0.clone()
+    frags = []
+    for k, rows in parts:
+        seg_perm = np.concatenate([rows, np.zeros(n)]).astype(np.int32)
+        tsplat.splat_raster_reference(
+            manual, as_t(a["view_pos"]), as_t(a["ndc"]), as_t(a["radius"]),
+            as_t(a["ids"]), as_t(seg_perm),
+            torch.tensor([0], dtype=torch.int32),
+            torch.tensor([len(rows)], dtype=torch.int32), as_t(a["proj"]),
+            h, w, k, voronoi, 64)
+        frags.append(oracle_fragments(
+            a["view_pos"][rows], a["ndc"][rows], a["radius"][rows],
+            a["ids"][rows], a["proj"], h, w, k, voronoi))
+    assert torch.equal(got, manual)
+
+    want_d, want_i = oracle_raster(
+        np.ones(h * w, np.float32), np.full(h * w, NO_ID, np.int64),
+        *(np.concatenate(col) for col in zip(*frags)))
+    plane = tsplat.Framebuffer(got)
+    assert np.array_equal(plane.point_id.numpy(), want_i)
+    assert bits_equal(plane.depth.numpy(),
+                      np.where(want_d == 0, 0, want_d).astype(np.float32))
+    lit = int((plane.point_id.numpy() != NO_ID).sum())
+    if case == "empty":
+        assert lit == 0 and torch.equal(got, fb0)
+    elif case == "corner":  # clipped to the quadrant inside the frame
+        ys, xs = np.divmod(np.flatnonzero(plane.point_id.numpy() != NO_ID), w)
+        assert lit > 50 and ys.max() <= 32 and xs.max() <= 32
+        assert plane.point_id.numpy()[0] == a["ids"][7]
+    else:
+        assert lit > 500
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bucket_raster_ignores_segment_order(seed, monkeypatch):
+    """The plane is a minimum: segments in any order give the same words."""
+    monkeypatch.setattr(tsplat, "RUNG_CHUNK_FRAGS", 256)
+    monkeypatch.setattr(tsplat, "RUNG_CAP_CHUNKS", 1)
+    a, perm, counts, offsets, (h, w) = raster_bucket("overflow", seed=seed + 9)
+    segments = tsplat.bucket_segments(BUCKET_RUNGS, BUCKET_FOOTPRINT,
+                                      len(a["rung"]))
+    order = np.random.default_rng(seed).permutation(len(segments))
+    planes = []
+    for segs in (segments, tuple(segments[i] for i in order)):
+        fb = tsplat.make_framebuffer(h, w).packed
+        tsplat.splat_raster_segments(
+            fb, as_t(a["view_pos"]), as_t(a["ndc"]), as_t(a["radius"]),
+            as_t(a["ids"]), perm, offsets, counts, as_t(a["proj"]), h, w,
+            segs, True)
+        planes.append(fb)
+    assert torch.equal(planes[0], planes[1])
+    assert (planes[0] != tsplat._CLEAR_WORD).sum() > 500
+
+
+def test_bucket_segments_table():
+    """One segment a rung, footprint first, overflow rungs capped at
+    rung_chunk_rows * RUNG_CAP_CHUNKS, then one footprint-window tail an
+    overflow rung; the bounds follow counts and offsets on the device."""
+    S = tsplat.Segment
+    n = 1 << 14
+    cap = {k: tsplat.rung_chunk_rows(k, n) * tsplat.RUNG_CAP_CHUNKS
+           for k in (9, 17)}
+    assert cap == {9: 512 * 64, 17: 128 * 64}
+    assert tsplat.bucket_segments((3, 5, 9, 17), 5, n) == (
+        S(5, 1, tsplat.NO_CAP, False), S(3, 0, tsplat.NO_CAP, False),
+        S(9, 2, cap[9], False), S(17, 3, cap[17], False),
+        S(5, 2, cap[9], True), S(5, 3, cap[17], True))
+    assert len(tsplat.bucket_segments(BUCKET_RUNGS, 5, n)) == 19
+    counts = torch.tensor([4, 0, 40000, 10], dtype=torch.int32)
+    offsets = torch.tensor([0, 4, 4, 40004], dtype=torch.int32)
+    bounds = [tuple(int(t) for t in tsplat.segment_bounds(s, offsets, counts))
+              for s in tsplat.bucket_segments((3, 5, 9, 17), 5, n)]
+    assert bounds == [(4, 0), (0, 4), (4, 32768), (40004, 10),
+                      (4 + 32768, 40000 - 32768), (40004 + 8192, 0)]
+
+
+def test_raster_rungs_hands_each_segment_to_a_given_raster():
+    """With ``raster=``, raster_rungs is the plain twin's loop: that
+    function once a segment, with the segment's window, the reference's
+    chunk size and one-element device bounds."""
+    a, perm, counts, offsets, (h, w) = raster_bucket("filled")
+    n = len(a["rung"])
+    calls = []
+
+    def spy(fb, *args):
+        start, count = args[5], args[6]
+        calls.append((args[-3], args[-1], int(start), int(count)))
+        return fb
+
+    fb = tsplat.make_framebuffer(h, w).packed
+    run_bucket(a, perm, counts, offsets, h, w, True, fb, raster=spy)
+    segments = tsplat.bucket_segments(BUCKET_RUNGS, BUCKET_FOOTPRINT, n)
+    assert [c[0] for c in calls] == [s.k for s in segments]
+    assert [c[1] for c in calls] == [tsplat.rung_chunk_rows(s.k, n)
+                                     for s in segments]
+    assert sum(c[3] for c in calls) == int(counts.sum())
+    assert all(c[3] == 0 for c, s in zip(calls, segments) if s.tail)
+    assert torch.equal(fb, tsplat.make_framebuffer(h, w).packed)
+
+
 # --- whole frames ---------------------------------------------------------
 
 
@@ -951,6 +1128,18 @@ def test_unported_render_arms_raise(unported):
         renderer.render(CellStreamer(meta), tcamera.Camera())
 
 
+def test_footprint_above_the_kernels_window_raises():
+    """The raster kernel's largest window bounds the footprint, on either
+    device: the limit is reported before any bucket runs."""
+    from point_cloud_tpu_torch.render.streaming import CellStreamer
+
+    meta = TMetadata()
+    renderer = TRenderer(meta, TSettings(
+        width=32, height=24, footprint=tsplat.MAX_WINDOW + 1), device="cpu")
+    with pytest.raises(ValueError, match="footprint"):
+        renderer.render(CellStreamer(meta), tcamera.Camera())
+
+
 def test_frame_without_cells_is_clear():
     """No loaded cell: no bucket runs, and the frame is the clear grey at
     the clear depth, through the packed readback."""
@@ -1049,6 +1238,67 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert tsplat.launches == before + 1
         assert torch.equal(fb_k, fb_p)
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_bucket_kernel_matches_plain_on_random_tables(self, cuda_device,
+                                                          seed):
+        """One launch over a random table of segments (windows up to the
+        kernel's limit, caps that bite and caps that do not, tails, empty
+        segments, shuffled) against the plain loop."""
+        w, h, n = 640, 360, 6000
+        rng = np.random.default_rng(seed)
+        ks = [int(k) for k in rng.choice(
+            [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 31, 32, 33, 64, 65, 100,
+             tsplat.MAX_WINDOW], 12, replace=False)]
+        view_pos, ndc, radius, ids, proj = splat_rows(seed, n, w, h, 12.0)
+        rung = rng.integers(-1, len(ks), n).astype(np.int32)
+        rung[rung == 3] = -1  # an empty rung
+        dev = lambda x: as_t(x).to(cuda_device)
+        perm, counts, offsets = tsplat.compact_classes(dev(rung), len(ks))
+        segments = []
+        for j, k in enumerate(ks):
+            cap = int(rng.choice([0, 5, 100, tsplat.NO_CAP]))
+            segments += [tsplat.Segment(k, j, cap, False),
+                         tsplat.Segment(int(rng.choice(ks)), j, cap, True)]
+        segments = tuple(segments[i] for i in rng.permutation(len(segments)))
+        args = [dev(x) for x in (view_pos, ndc, radius, ids)]
+        fb_k = tsplat.make_framebuffer(h, w, cuda_device).packed
+        fb_p = fb_k.clone()
+        before = tsplat.launches
+        tsplat.splat_raster_segments(fb_k, *args, perm, offsets, counts,
+                                     dev(proj), h, w, segments, True)
+        tsplat.splat_raster_segments_reference(
+            fb_p, *args, perm, offsets, counts, dev(proj), h, w, segments,
+            True)
+        torch.cuda.synchronize()
+        assert tsplat.launches == before + 1
+        assert torch.equal(fb_k, fb_p)
+        assert (fb_k != tsplat._CLEAR_WORD).sum() > 10_000
+
+    def test_one_raster_launch_a_bucket_pass(self, cuda_device):
+        """render_bucket_pass launches K1 once and K2 once, whatever the
+        ladder holds, and equals its plain twin."""
+        arrays, (h, w) = chunk_bucket(n=4096, w=320, h=240)
+        overs, subs = (6, 7, 8, 9, 17, 33, 65), (1, 2, 3, 4)
+        rungs = subs + (5,) + overs
+        thr = as_t(np.array([k / 2 for k in rungs], np.float32)).to(cuda_device)
+        t = {k: as_t(v).to(cuda_device) for k, v in arrays.items()}
+        args = (t["positions"], t["hier_base"], t["valid"], t["point_id"],
+                t["view"], t["projection"], t["cam_pos"], t["spacings"],
+                t["far_distances"], False, 0, thr)
+        kw = dict(height=h, width=w, footprint=5, voronoi=True,
+                  use_occlusion=False, overflow_ks=overs, sub_ks=subs)
+        k1, k2 = tkernel.launches, tsplat.launches
+        fb_k, vec_k = tsplat.render_bucket_pass(
+            tsplat.make_framebuffer(h, w, cuda_device), *args, **kw)
+        torch.cuda.synchronize()
+        assert (tkernel.launches, tsplat.launches) == (k1 + 1, k2 + 1)
+        fb_p, vec_p = tsplat.render_bucket_pass(
+            tsplat.make_framebuffer(h, w, cuda_device), *args, **kw,
+            cull=tkernel.cull_classify_reference,
+            raster=tsplat.splat_raster_reference)
+        assert torch.equal(vec_k, vec_p) and int(vec_k[0]) > 0
+        assert torch.equal(fb_k.packed, fb_p.packed)
 
     def test_frame_on_card_matches_cpu(self, cuda_device, tmp_path):
         meta = make_store(tmp_path, corridor(20_000, seed=51))
