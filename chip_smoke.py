@@ -44,6 +44,19 @@ use. Imports no JAX. Phases, one JSON line each:
    ``render_orbit`` for 8 frames: ``render`` times, ``render_pipelined``
    steady time, points, buckets, launches per frame, and the device busy
    share of one frame under ``torch.profiler``.
+6. serve: the same store behind the port's store server (``serve``, on the
+   card, 640x480, in a thread), driven over HTTP from zero launch counts:
+   the static files, four orbit poses and one fly pose, eight timed
+   ``/render`` after a warm one (median and spread in ms; one more
+   request's device busy share and host profile, without HTTP), footprint 1
+   (every bucket of that frame captured and K1 and K2 held bit-exact
+   against their plain versions on it), the in-app converter on a
+   2^18-point PLY (the store it writes must validate clean) and a PLY
+   ``/export`` (its vertex count must equal the store's). Every PNG must
+   be byte-identical to the one ``StoreServer(..., device="cpu")`` makes
+   after the same requests. Then ``WindowLoop`` runs 8 frames on the card
+   with a stub back end (the machine has no display), a movement key and a
+   hotkey pressed: every frame must blit.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels' JSON
 line, and the last line ``{"ok": true, "device": {...}}``. In the
@@ -51,9 +64,13 @@ kernels' line ``ms`` is the kernel's own device time a call
 (``torch.profiler``, :func:`device_kernel_ms`), ``wrapper_ms`` the CUDA
 event time around the wrapper call (host work between launches
 included), ``plain_ms`` the event time of the plain version, and
-``bound_ms`` the byte bound at the H100 SXM's 3.35 TB/s (``sort4`` 16 B
-read and 16 B written a row; ``cull_classify`` as ``cull_bound_ms``
-says). ``splat_raster``'s is the larger of its byte bound
+``bound_ms`` the byte bound at the H100 SXM's HBM rate, 3.35 TB/s
+(``bound_memory``: every byte counted once from HBM; a reading below it
+means the inputs were still in the 50 MB L2), with ``sort4`` 16 B read
+and 16 B written a row and ``cull_classify`` as ``cull_bound_ms`` says.
+Every timed block starts on a card held busy for WARM_S seconds (an idle
+H100 clocks 840 of 1,980 MHz), and K1 is timed from an L2 flushed before
+each call, as a frame finds it. ``splat_raster``'s is the larger of its byte bound
 (``raster_bound_ms``) and its instruction bound (``raster_instr_bound_ms``: the
 fragments it lights and those it only tests, each times its instructions
 a fragment, over the card's lanes at the clock ``nvidia-smi`` reports
@@ -90,17 +107,39 @@ KEY_SHAPES = ("full_range", "duplicates", "dedup_shaped", "all_equal",
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 CLI_TIMEOUT_S = 600
+WARM_S = 0.25  # busy time before each timed block
+L2_FLUSH_BYTES = 64 << 20  # past the H100's 50 MB L2
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def warm_clock(torch, seconds: float = WARM_S) -> None:
+    """Keep the card busy with f32 matrix products for ``seconds``, so that
+    a timed block starts at the clock of a loaded card, not an idle one."""
+    a = torch.ones(4096, 4096, device="cuda")
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        for _ in range(4):
+            a @ a
+        torch.cuda.synchronize()
+
+
+def l2_flush(torch):
+    """A function that overwrites L2_FLUSH_BYTES of device memory, so that
+    the next kernel reads its inputs from HBM."""
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    return scratch.zero_
+
+
 def cuda_ms(fn, reps: int = 7, setup=None) -> float:
-    """Median CUDA event time of ``fn()`` in ms over ``reps`` timed runs;
-    ``setup()``, if given, runs before each, outside the timed span."""
+    """Median CUDA event time of ``fn()`` in ms over ``reps`` timed runs,
+    on a warmed card; ``setup()``, if given, runs before each, outside the
+    timed span."""
     import torch
 
+    warm_clock(torch)
     fn()  # warm-up
     times = []
     for _ in range(reps):
@@ -124,6 +163,7 @@ def device_kernel_ms(torch, fn, names: tuple, reps: int = 20) -> float:
     kernel ran."""
     from torch.profiler import ProfilerActivity, profile
 
+    warm_clock(torch)
     fn()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -563,7 +603,8 @@ def lit_fragments(torch, splat, inp) -> tuple[int, int]:
 
 def cull_bound_ms(n: int, inside: int, occlusion: bool, pyramid: bool,
                   pixels: int, coarse_cells: int) -> float:
-    """Least time for K1 over n points, in bytes at the HBM rate: each
+    """Least time for K1 over n points, in bytes at the HBM rate (every
+    byte from HBM; K1 is timed from a flushed L2 to match): each
     point reads its position, hierarchy and valid flag (17 B) and writes
     the outputs the bucket pass reads, keep, view_pos, ndc, radius and
     rung (37 B; the hierarchy and rmax it also writes are discarded
@@ -580,7 +621,8 @@ def cull_bound_ms(n: int, inside: int, occlusion: bool, pyramid: bool,
 
 
 def raster_bound_ms(rows: int, touched: int) -> float:
-    """Least time for one bucket's K2 launch, in bytes at the HBM rate:
+    """Least time for one bucket's K2 launch, in bytes at the HBM rate
+    (HBM for the rows and the first touch of a pixel, L2 for the rest):
     each rastered row reads its perm entry, view_pos.z, ndc, radius and id
     (28 B), and each framebuffer word that a lit fragment lands on is read
     once and written once (2 * 8 B * ``touched`` distinct pixels, at most
@@ -605,10 +647,11 @@ def raster_instr_bound_ms(tested: int, lit: int, sms: int,
 def segment_rows(splat, inp) -> list:
     """(segment, its row count) for each of the bucket's segments (reads
     the counts)."""
-    segs = splat.bucket_segments(inp["rungs"], inp["footprint"],
-                                 inp["view_pos"].shape[0])
-    return [(seg, int(splat.segment_bounds(seg, inp["offsets"],
-                                           inp["counts"])[1])) for seg in segs]
+    segs, counts, offsets = splat.raster_table(
+        inp["rungs"], inp["footprint"], inp["view_pos"].shape[0],
+        inp["counts"], inp["offsets"])
+    return [(seg, int(splat.segment_bounds(seg, offsets, counts)[1]))
+            for seg in segs]
 
 
 def tested_fragments(splat, inp) -> int:
@@ -834,7 +877,7 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     cull_t = time_kernel(
         torch, lambda: kernel.cull_classify(*cargs, **ckw),
         lambda: kernel.cull_classify_reference(*cargs, **ckw),
-        ("cull_classify_kernel",), plain_reps=3)
+        ("cull_classify_kernel",), plain_reps=3, setup=l2_flush(torch))
     inp = raster_inputs(splat, kernel, *big)
     fb_big = big[0].clone()
     raster_t = time_kernel(
@@ -942,6 +985,321 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     }
 
 
+# --- phase 6: the store server ----------------------------------------------
+
+SERVE_W, SERVE_H = 640, 480  # the server's defaults
+SERVE_POSES = ("yaw=0.5&pitch=-0.4", "yaw=2.1&pitch=-0.5",
+               "yaw=3.6&pitch=-0.3", "yaw=5.2&pitch=-0.6")
+TIMED_RENDERS = 8
+CONVERT_POINTS = 1 << 18
+WINDOW_FRAMES = 8
+HTTP_TIMEOUT_S = 600
+
+
+def http(url: str, payload=None):
+    """(status, headers, body) of a GET, or of a POST of ``payload`` as
+    JSON; an error status raises."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as resp:
+        return resp.status, resp.headers, resp.read()
+
+
+def http_json(url: str, payload=None):
+    status, _, body = http(url, payload)
+    if status != 200:
+        raise AssertionError(f"{url}: HTTP {status}")
+    return json.loads(body)
+
+
+def png_pixels(np, data: bytes):
+    """(H, W, 3) u8 pixels of a PNG written by viewer/offscreen.write_png
+    (8-bit RGB, filter 0 on every row)."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        length = struct.unpack(">I", data[pos:pos + 4])[0]
+        tag, chunk = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            size = struct.unpack(">II", chunk[:8])
+        elif tag == b"IDAT":
+            idat += chunk
+        pos += 12 + length
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1)
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def lit_pixels(np, png: bytes) -> int:
+    """Pixels of a SERVE_W x SERVE_H frame that differ from its corner."""
+    rgb = png_pixels(np, png)
+    if rgb.shape != (SERVE_H, SERVE_W, 3):
+        raise AssertionError(f"frame of shape {rgb.shape}")
+    return int((rgb != rgb[0, 0]).any(axis=2).sum())
+
+
+class StubBackend:
+    """A window back end without a display: scripted event batches in,
+    blitted frames counted."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+        self.blits = []
+        self.alive = True
+
+    def poll_events(self):
+        return self.batches.pop(0) if self.batches else []
+
+    def blit(self, rgb):
+        self.blits.append(rgb.shape)
+
+    def set_title(self, title):
+        pass
+
+    def close(self):
+        self.alive = False
+
+
+def phase_window(torch, np, store: Path) -> dict:
+    """WindowLoop on the card for WINDOW_FRAMES frames, W held and the
+    voronoi hotkey pressed: every frame blits, the camera moves, the
+    toggle lands. Counts the frame kernels' launches from zero."""
+    from point_cloud_tpu_torch.render import kernel, splat
+    from point_cloud_tpu_torch.render.renderer import RenderSettings
+    from point_cloud_tpu_torch.viewer import Viewer
+    from point_cloud_tpu_torch.viewer.window import WindowEvent, WindowLoop
+
+    viewer = Viewer(RenderSettings(width=SERVE_W, height=SERVE_H),
+                    device="cuda")
+    try:
+        viewer.load_metadata(store / "metadata.json")
+        settle(viewer)
+        start = np.array(viewer.camera.transform.translation)
+        backend = StubBackend([[WindowEvent("key_down", key="w"),
+                                WindowEvent("key_down", key="v"),
+                                WindowEvent("key_up", key="v")]])
+        kernel.launches = splat.launches = 0
+        t0 = time.perf_counter()
+        frames = WindowLoop(viewer, backend).run(max_frames=WINDOW_FRAMES)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches = {"cull_classify": kernel.launches,
+                    "splat_raster": splat.launches}
+        moved = float(np.linalg.norm(
+            np.array(viewer.camera.transform.translation) - start))
+        voronoi = viewer.settings.voronoi
+    finally:
+        viewer.close()
+    if frames != WINDOW_FRAMES or len(backend.blits) != WINDOW_FRAMES:
+        raise AssertionError(f"{frames} frames, {len(backend.blits)} blits")
+    if set(backend.blits) != {(SERVE_H, SERVE_W, 3)}:
+        raise AssertionError(f"blits of shapes {set(backend.blits)}")
+    if voronoi or moved <= 0.0 or min(launches.values()) <= 0:
+        raise AssertionError(f"window loop: voronoi {voronoi}, moved {moved},"
+                             f" launches {launches}")
+    return {"frames": frames, "blits": len(backend.blits), "loop_s": loop_s,
+            "camera_moved": moved, "launches": launches}
+
+
+def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
+                clock_mhz: float) -> dict:
+    import threading
+
+    from point_cloud_tpu_torch.core.point import PointBatch
+    from point_cloud_tpu_torch.io.ply import write_ply
+    from point_cloud_tpu_torch.models.synth import synth_cloud
+    from point_cloud_tpu_torch.render import kernel, splat
+    from point_cloud_tpu_torch.serve import StoreServer, serve
+    from point_cloud_tpu_torch.validate import validate_store
+
+    t_phase = time.perf_counter()
+    root = tmp / "convert_root"
+    root.mkdir()
+    rng = np.random.default_rng(6)
+    write_ply(root / "cloud.ply", PointBatch(
+        synth_cloud(CONVERT_POINTS, seed=5),
+        rng.integers(0, 256, (CONVERT_POINTS, 4), dtype=np.uint8)))
+    meta_bytes = (store / "metadata.json").read_bytes()
+    n_points = json.loads(meta_bytes)["number_of_points"]
+    cell = sorted((store / "h_0").iterdir())[0]
+
+    captured = []
+    bucket_pass = splat.render_bucket_pass
+
+    def capture(framebuffer, *args, **kw):
+        captured.append((framebuffer.packed.clone(), args, kw))
+        return bucket_pass(framebuffer, *args, **kw)
+
+    # the main path's run: every count starts at 0 here
+    kernel.launches = splat.launches = 0
+    httpd = serve(store, host="127.0.0.1", port=0, convert_root=root)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        stats = http_json(f"{url}/stats")
+        settings = http_json(f"{url}/settings")
+        if (stats["number_of_points"] != n_points
+                or (settings["footprint"], settings["voronoi"]) != (5, True)):
+            raise AssertionError(f"stats {stats}, settings {settings}")
+        if (http(f"{url}/metadata.json")[2] != meta_bytes
+                or http(f"{url}/h_0/{cell.name}")[2] != cell.read_bytes()):
+            raise AssertionError("a static file differs from the store's")
+        # the fly pose: from inside the cloud's box, towards its centre
+        center, d = np.array(stats["center"]), stats["auto_distance"]
+        eye = center + np.array([0.25, -0.2, 0.1]) * d
+        look = center - eye
+        fly = (f"px={eye[0]}&py={eye[1]}&pz={eye[2]}"
+               f"&yaw={math.atan2(look[1], look[0])}"
+               f"&pitch={math.asin(look[2] / np.linalg.norm(look))}")
+        queries = list(SERVE_POSES) + [fly]
+        pngs = [http(f"{url}/render?{q}")[2] for q in queries]
+        lit = [lit_pixels(np, png) for png in pngs]
+        if min(lit) < 1000:
+            raise AssertionError(f"frames with few lit pixels: {lit}")
+        # timed: what a client waits for a frame, through HTTP
+        warm = http(f"{url}/render?{SERVE_POSES[0]}")[2]
+        render_ms = []
+        for _ in range(TIMED_RENDERS):
+            t0 = time.perf_counter()
+            if http(f"{url}/render?{SERVE_POSES[0]}")[2] != warm:
+                raise AssertionError("one pose rendered two frames")
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+        # one request's work without HTTP: the device's share of it and
+        # the host's top functions
+        server = httpd.registry.get(httpd.registry.default)
+        profiled = busy_share(torch, lambda: server.render_png(yaw=0.5,
+                                                               pitch=-0.4))
+        profiled["host_cumulative_ms"] = host_profile(
+            lambda: server.render_png(yaw=0.5, pitch=-0.4))
+        points_loaded = server.viewer.stats()["points"]["loaded"]
+        # footprint 1, its buckets captured
+        if http_json(f"{url}/settings", {"footprint": 1})["footprint"] != 1:
+            raise AssertionError("footprint 1 not applied")
+        splat.render_bucket_pass = capture
+        try:
+            png_fp1 = http(f"{url}/render?{SERVE_POSES[0]}")[2]
+        finally:
+            splat.render_bucket_pass = bucket_pass
+        http_json(f"{url}/settings", {"footprint": 5})
+        lit_fp1 = lit_pixels(np, png_fp1)
+        if not captured or not 0 < lit_fp1 < lit[0]:
+            raise AssertionError(f"footprint 1: {len(captured)} buckets, "
+                                 f"{lit_fp1} lit pixels against {lit[0]}")
+        # export of the served store
+        t0 = time.perf_counter()
+        status, headers, body = http(f"{url}/export?format=ply")
+        export_s = time.perf_counter() - t0
+        head = body[:body.index(b"end_header\n")].decode()
+        vertices = int(head.split("element vertex ")[1].split()[0])
+        if status != 200 or vertices != n_points or len(body) != (
+                len(head) + len("end_header\n") + 16 * n_points):
+            raise AssertionError(f"export: HTTP {status}, {vertices} "
+                                 f"vertices, {len(body)} bytes")
+        # the in-app converter over HTTP
+        t0 = time.perf_counter()
+        for action in ({"action": "new_cloud"},
+                       {"action": "choose", "files": ["cloud.ply"]},
+                       {"action": "save_at", "directory": "converted"},
+                       {"action": "start"}):
+            http_json(f"{url}/convert", action)
+        while True:
+            status_json = http_json(f"{url}/convert")
+            if status_json["state"] == "finished":
+                break
+            if time.perf_counter() - t0 > HTTP_TIMEOUT_S:
+                raise AssertionError(f"conversion stuck: {status_json}")
+            time.sleep(0.05)
+        for pump in [t for t in threading.enumerate()
+                     if t.name == "pct-convert-pump"]:
+            pump.join(timeout=HTTP_TIMEOUT_S)  # the pump's last flush
+            if pump.is_alive():
+                raise AssertionError("the converter's pump did not end")
+        convert_s = time.perf_counter() - t0
+        launches = {"cull_classify": kernel.launches,
+                    "splat_raster": splat.launches}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if launches["cull_classify"] <= 0 or (
+            launches["splat_raster"] != launches["cull_classify"]):
+        raise AssertionError(f"the server did not run its kernels: {launches}")
+    report = validate_store(root / "converted")
+    if report.issues or report.points + report.overflow_points != (
+            CONVERT_POINTS) or json.loads((root / "converted" / "metadata.json")
+                                          .read_text())["number_of_points"] != (
+            CONVERT_POINTS):
+        raise AssertionError(f"converted store: {report.issues[:5]}, "
+                             f"{report.points} + {report.overflow_points}")
+
+    # the same requests to the port's server on the CPU: the same PNGs
+    t0 = time.perf_counter()
+    cpu = StoreServer(store, device="cpu")
+    try:
+        for q, png in zip(queries, pngs):
+            args = {k: float(v) for k, v in
+                    (kv.split("=") for kv in q.split("&"))}
+            eye_arg = ([args.pop("px"), args.pop("py"), args.pop("pz")]
+                       if "px" in args else None)
+            if cpu.render_png(eye=eye_arg, **args) != png:
+                raise AssertionError(f"/render?{q}: cuda PNG != cpu PNG")
+        cpu.apply_settings({"footprint": 1})
+        if cpu.render_png(yaw=0.5, pitch=-0.4) != png_fp1:
+            raise AssertionError("footprint 1: cuda PNG != cpu PNG")
+    finally:
+        cpu.viewer.close()
+    cpu_s = time.perf_counter() - t0
+
+    # K1 and K2 against their plain versions on every footprint-1 bucket
+    buckets = [check_bucket(torch, splat, kernel, *entry)
+               for entry in captured]
+    big = max(captured, key=lambda e: int(e[1][2].sum()))
+    inp = raster_inputs(splat, kernel, *big)
+    fb_big = big[0].clone()
+    fp1_ms = device_kernel_ms(
+        torch, lambda: (fb_big.copy_(big[0]),
+                        run_rungs(splat, fb_big, inp, None)),
+        ("splat_raster_kernel",))
+    frags, touched = lit_fragments(torch, splat, inp)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fp1_bound = {
+        "rows": inp["kept"], "fragments": frags, "touched_pixels": touched,
+        "bytes_bound_ms": raster_bound_ms(inp["kept"], touched),
+        "instr_bound_ms": raster_instr_bound_ms(inp["kept"], frags, sms,
+                                                clock_mhz)}
+    window = phase_window(torch, np, store)
+    result = {
+        "phase": "serve", "ok": True, "nvidia_smi": smi,
+        "width": SERVE_W, "height": SERVE_H, "points": n_points,
+        "poses": queries, "lit_pixels": lit, "cpu_png_identical": True,
+        "render_ms": render_ms,
+        "render_ms_median": statistics.median(render_ms),
+        "render_ms_min": min(render_ms), "render_ms_max": max(render_ms),
+        "points_loaded": points_loaded, "profiled_render": profiled,
+        "footprint1": {"lit_pixels": lit_fp1, "buckets": buckets,
+                       "largest_bucket_k2_ms": fp1_ms, **fp1_bound},
+        "export_s": export_s, "export_vertices": vertices,
+        "convert_s": convert_s, "convert_points": CONVERT_POINTS,
+        "converted_cells": report.cells, "launches": launches,
+        "window": window, "cpu_s": cpu_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    print(f"serve /render {SERVE_W}x{SERVE_H} over HTTP: median "
+          f"{result['render_ms_median']:.1f} ms (min {min(render_ms):.1f}, "
+          f"max {max(render_ms):.1f}, {TIMED_RENDERS} requests) on {smi}",
+          flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -984,6 +1342,8 @@ def main() -> int:
         tmp = Path(tmp)
         sliced = phase_slice(np, {1 << log_n for log_n in SORT_SIZES}, tmp)
         framed = phase_frame(torch, np, tmp / "device-native", tmp)
+        served = phase_serve(torch, np, tmp / "device-native", tmp, smi,
+                             framed["raster"]["sm_clock_mhz_under_load"])
     pulled = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "point_cloud_tpu", "bench"))
     if pulled:
@@ -1001,6 +1361,11 @@ def main() -> int:
     bound_ms, bound_by = sort4_bound_ms(main_n)
     frame_launches = framed["frame"]["launches"]
     cull, raster = framed["cull"], framed["raster"]
+    by_path = {name: {"orbit": frame_launches[name],
+                      "serve": served["launches"][name],
+                      "window": served["window"]["launches"][name]}
+               for name in frame_launches}
+    fp1 = served["footprint1"]
     emit({"kernels": [{
         "name": "sort4", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/sort4.cu",
@@ -1010,7 +1375,7 @@ def main() -> int:
         "ms": kernel["sort_device_ms_by_n"][main_n],
         "wrapper_ms": statistics.median(kernel["sort_ms_by_n"][main_n]),
         "plain_ms": statistics.median(kernel["plain_ms_by_n"][main_n]),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_memory": "HBM",
         # no single PyTorch call sorts four i32 columns lexicographically
         "library_ms": None,
         "n": main_n,
@@ -1032,10 +1397,13 @@ def main() -> int:
         "source": "point_cloud_tpu_torch/csrc/cull.cu",
         "replaces": "point_cloud_tpu/render/kernel.py:205",
         "launches": frame_launches["cull_classify"],
-        "max_abs_err": cull["max_abs_err"],
+        "max_abs_err": max(cull["max_abs_err"],
+                           *(b["cull_err"] for b in fp1["buckets"])),
         "ms": cull["ms"], "wrapper_ms": cull["wrapper_ms"],
         "plain_ms": cull["plain_ms"],
         "bound_ms": cull["bound_ms"], "bound_by": "bytes",
+        "bound_memory": "HBM", "timed_from": "a flushed L2",
+        "launches_by_path": by_path["cull_classify"],
         # no single PyTorch call projects, culls and classifies points
         "library_ms": None,
         "n": cull["n"], "inside": cull["inside"],
@@ -1045,12 +1413,21 @@ def main() -> int:
         "source": "point_cloud_tpu_torch/csrc/splat.cu",
         "replaces": "point_cloud_tpu/render/splat.py:614",
         "launches": frame_launches["splat_raster"],
-        "max_abs_err": raster["max_abs_err"],
+        "max_abs_err": max(raster["max_abs_err"],
+                           *(b["raster_err"] for b in fp1["buckets"])),
         "ms": raster["ms"], "wrapper_ms": raster["wrapper_ms"],
         "plain_ms": raster["plain_ms"],
         "bound_ms": raster["bound_ms"], "bound_by": raster["bound_by"],
+        "bound_memory": "HBM",
         "bytes_bound_ms": raster["bytes_bound_ms"],
         "instr_bound_ms": raster["instr_bound_ms"],
+        "launches_by_path": by_path["splat_raster"],
+        "footprint1": {
+            "buckets_checked": len(fp1["buckets"]),
+            "max_abs_err": max(b["raster_err"] for b in fp1["buckets"]),
+            "largest_bucket_ms": fp1["largest_bucket_k2_ms"],
+            **{k: fp1[k] for k in ("rows", "fragments", "touched_pixels",
+                                   "bytes_bound_ms", "instr_bound_ms")}},
         # no single PyTorch call expands splats into fragments; the
         # scatter_reduce_ of the plain version is only its last step
         "library_ms": None,

@@ -11,7 +11,12 @@ the reference's module paths so each counterpart is easy to find:
 - ``ops.dedup``    — the dedup pass: device half and NumPy host half,
 - ``convert.*``    — the ``--device`` and ``--device-native`` converters
   and the CLI,
-- ``models``       — the ``conversion`` pipeline and the synthetic cloud.
+- ``models``       — the ``conversion`` pipeline and the synthetic cloud,
+- ``render``, ``viewer`` — the frame path (``csrc/cull.cu``,
+  ``csrc/splat.cu``), the headless viewer, its Tk window and in-app
+  converter,
+- ``serve``        — the store server; ``validate``, ``export`` — the
+  store's host tools.
 
 The port carries its own copies of the reference's host layer (store
 format in ``core/``, readers in ``io/``, the C++ engine's binding in

@@ -13,12 +13,20 @@ optionally the depth plane) that :meth:`PointRenderer.render_finish`
 waits for.
 
 The port renders the reference's default arm: the per-bucket megakernel
-with the chunked rung raster (renderer.py:536-580). Settings that select
-another arm raise ``NotImplementedError`` (ROADMAP.md): ``megakernel``,
-``chunked_raster`` and ``compact_raster`` off, ``raster_mode="sorted"``,
-``frame_fusion`` on and ``footprint=1``. ``classing`` and
-``fused_compaction`` steer only the multi-dispatch arm, so they change
-nothing here.
+with the chunked rung raster (renderer.py:536-580), and its footprint-1
+arm (renderer.py:879-886): every kept row through the 1x1 window, one
+segment of the same raster kernel. Settings that select another arm raise
+``NotImplementedError`` (ROADMAP.md): ``megakernel``, ``chunked_raster``
+and ``compact_raster`` off, ``raster_mode="sorted"`` and ``frame_fusion``
+on. ``classing`` and ``fused_compaction`` steer only the multi-dispatch
+arm, so they change nothing here.
+
+Two differences from the reference are deliberate. A ``footprint`` outside
+1 to ``splat.MAX_WINDOW`` raises ``ValueError`` where the reference draws
+any window. At footprint 1 the reference compacts the kept rows into a
+budget sized from the last frame (splat.py:65-93) and so can drop rows on
+the one frame after a jump in visibility; the port rasters every kept
+row.
 """
 
 from __future__ import annotations
@@ -46,8 +54,8 @@ SMALL_WINDOWS = (1, 3, 5, 7)
 class RenderSettings:
     """The reference's settings (renderer.py:78-197), every field with the
     same default; see there for each knob's measured rationale. The raster
-    kernel draws windows of at most ``splat.MAX_WINDOW`` pixels: the ladder
-    ends at 65, so only a ``footprint`` above that limit is refused."""
+    kernel draws windows of 1 to ``splat.MAX_WINDOW`` pixels: the ladder
+    ends at 65, so only a ``footprint`` outside that range is refused."""
 
     width: int = 1280
     height: int = 720
@@ -73,23 +81,22 @@ class RenderSettings:
 
 def check_ported(settings: RenderSettings) -> None:
     """Raise for a setting whose render arm the port does not have, or a
-    footprint wider than the raster kernel's largest window."""
-    if settings.footprint > splat.MAX_WINDOW:
+    footprint outside the raster kernel's windows."""
+    if not 1 <= settings.footprint <= splat.MAX_WINDOW:
         raise ValueError(f"footprint {settings.footprint}: the raster kernel "
-                         f"draws windows of at most {splat.MAX_WINDOW} pixels")
+                         f"draws windows of 1 to {splat.MAX_WINDOW} pixels")
     unported = {
         "megakernel=False": not settings.megakernel,
         "chunked_raster=False": not settings.chunked_raster,
         "compact_raster=False": not settings.compact_raster,
         'raster_mode="sorted"': settings.raster_mode == "sorted",
         "frame_fusion=True": bool(settings.frame_fusion),
-        "footprint=1": settings.footprint <= 1,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
         raise NotImplementedError(
             f"render arm not ported yet ({', '.join(bad)}): the port renders "
-            "the chunked megakernel arm only (ROADMAP.md)")
+            "the chunked megakernel arm and footprint 1 only (ROADMAP.md)")
 
 
 def hierarchy_tables(metadata: Metadata) -> tuple[np.ndarray, np.ndarray]:
@@ -306,6 +313,9 @@ class PointRenderer:
                 height=s.height, width=s.width, footprint=s.footprint,
                 voronoi=s.voronoi, use_occlusion=use_occ,
                 use_pyramid=use_pyr, overflow_ks=overs, sub_ks=subs)
+            # at footprint 1 the reference lands the cull's cumulative fit
+            # counts (renderer.py:667-669); exclusive counts of the same
+            # ladder land the same per-rung values
             frame_vecs.append((bucket, ladder, counts_vec, "excl"))
             all_colors.append(colors)
             frame_bucket_keys.append(bucket_key)

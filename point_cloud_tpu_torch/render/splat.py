@@ -13,7 +13,8 @@ smallest id, splat.py:262-298) in one comparison. The clear word is
 - :func:`splat_raster_segments` is K2, the raster of one bucket: every
   :class:`Segment` of :func:`bucket_segments` (a rung's region of
   ``perm`` through its own window, capped for an overflow rung, or the
-  tail beyond that cap through the footprint window), the rungs' counts
+  tail beyond that cap through the footprint window; at footprint 1 one
+  segment over every kept row, :func:`raster_table`), the rungs' counts
   and offsets read from device memory. On a CUDA tensor it is one launch
   of the hand-written kernel ``csrc/splat.cu`` (lanes along the window's
   columns, one 64-bit ``atomicMin`` a lit fragment), or it raises; on a
@@ -227,6 +228,21 @@ def bucket_segments(rungs: tuple, footprint: int, n: int) -> tuple:
     return tuple(segs)
 
 
+def raster_table(rungs: tuple, footprint: int, n: int, counts, offsets):
+    """(segments, counts, offsets) that K2 rasters a bucket of ``n`` rows
+    ranked into ``rungs`` by: the rungs' own (R,) counts and offsets with
+    :func:`bucket_segments`, or at footprint 1 one segment of k = 1 over
+    every kept row (the reference's footprint-1 arm, renderer.py:879-886,
+    has no overflow rung: each splat is clipped to its centre pixel), with
+    one-element counts and offsets on the device. The ranking keeps the
+    ladder's classes either way; they give the frame's counts."""
+    if footprint != 1:
+        return bucket_segments(rungs, footprint, n), counts, offsets
+    # the classes lie one after another from perm[0]
+    total = counts.sum(dtype=torch.int32).reshape(1)
+    return (Segment(1, 0, NO_CAP, False),), total, torch.zeros_like(total)
+
+
 def segment_bounds(seg: Segment, offsets, counts):
     """(start, count) of a segment as one-element i32 tensors on the
     rungs' device; nothing waits for the host."""
@@ -358,7 +374,8 @@ def render_bucket_pass(framebuffer: Framebuffer, positions, hier_base, valid,
     cull reads the running depth (near buckets raster first). One K2
     launch rasters the bucket: every rung's region of the ranking through
     its own window, an overflow rung at most its cap of rows, and the rest
-    (its tail) through the footprint window. Nothing here waits for the
+    (its tail) through the footprint window; at footprint 1, every kept row
+    through the 1x1 window (:func:`raster_table`). Nothing here waits for the
     device. ``cull`` and ``raster`` default to K1 and K2; passing
     their plain versions runs the same chain as a twin on any device."""
     cull = cull or kernel.cull_classify
@@ -387,10 +404,11 @@ def raster_rungs(fb, view_pos, ndc, radius, point_id, perm, counts, offsets,
                  projection, *, height: int, width: int, rungs: tuple,
                  footprint: int, voronoi: bool, raster=None):
     """The rung rasters of one bucket (splat.py:752-785), the segments of
-    :func:`bucket_segments`: by default one K2 call for all of them (one
+    :func:`raster_table`: by default one K2 call for all of them (one
     launch on the card); with ``raster``, that function once a segment
     with device-side start and count, the plain twin's loop."""
-    segments = bucket_segments(rungs, footprint, view_pos.shape[0])
+    segments, counts, offsets = raster_table(rungs, footprint,
+                                             view_pos.shape[0], counts, offsets)
     if raster is None:
         return splat_raster_segments(
             fb, view_pos, ndc, radius, point_id, perm, offsets, counts,

@@ -27,6 +27,19 @@ from point_cloud_tpu.core.metadata import MetadataConfig
 from point_cloud_tpu.ops import dedup as jd
 from point_cloud_tpu_torch.ops import dedup as td
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the test workers
+    share the machine's cores, and torch's parallel regions wait at a
+    barrier for every thread, so a descheduled thread stalls each small
+    op (three 64x64 CPU frames took 90 s at 8 threads beside six busy
+    processes on 8 cores, 0.4 s at one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 N_BUCKET = 1 << 15
 I32_MAX = 2**31 - 1
 

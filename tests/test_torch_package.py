@@ -12,6 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the test workers
+    share the machine's cores, and torch's parallel regions wait at a
+    barrier for every thread, so a descheduled thread stalls each small
+    op (three 64x64 CPU frames took 90 s at 8 threads beside six busy
+    processes on 8 cores, 0.4 s at one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -52,6 +65,23 @@ def test_port_imports_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
     assert (tmp_path / "store" / "metadata.json").exists()
+
+
+def test_store_server_imports_no_jax():
+    """A fresh process that imports the port's server, window and tools
+    finds no module of jax or of the reference loaded."""
+    code = (
+        "import sys\n"
+        "import point_cloud_tpu_torch.serve, point_cloud_tpu_torch.export\n"
+        "import point_cloud_tpu_torch.validate\n"
+        "import point_cloud_tpu_torch.viewer.window\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'point_cloud_tpu')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -163,10 +193,10 @@ def test_conversion_pipeline_matches_reference():
     assert got[0].shape == (n,) and got[3].shape == (n, 3)
 
 
-def test_frame_pipeline_not_ported():
-    """The name is from before the frame path was ported: get_pipeline
-    ("frame") now runs the port's cull_lod_pass (the LOD walk, then the
-    cull) on the reference's inputs and matches the JAX pass exactly."""
+def test_frame_pipeline_matches_reference():
+    """get_pipeline("frame") runs the port's cull_lod_pass (the LOD walk,
+    then the cull) on the reference's inputs and matches the JAX pass
+    exactly; an unknown pipeline name raises KeyError."""
     from point_cloud_tpu.models import get_pipeline as ref_pipeline
     from point_cloud_tpu_torch.models import get_pipeline
 

@@ -27,6 +27,10 @@
   differs by at most 1.2e-7.
 - The reference's image identities hold exactly in the port, and the
   render arms the port does not have raise.
+- Footprint 1: every bucket of the port's frame equals the NumPy oracle
+  at k = 1 over the kept rows, and the frame meets the JAX renderer's
+  (first and steady frames) with the same landed counts; a footprint of
+  129, which the reference draws, raises in the port.
 
 The kernels themselves (``cuda`` marker) are held against their plain
 versions only where a card exists; here they skip. On the card, without
@@ -52,6 +56,19 @@ from point_cloud_tpu_torch.render import splat as tsplat
 from point_cloud_tpu_torch.render import transform as ttransform
 from point_cloud_tpu_torch.render.renderer import PointRenderer as TRenderer
 from point_cloud_tpu_torch.render.renderer import RenderSettings as TSettings
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the test workers
+    share the machine's cores, and torch's parallel regions wait at a
+    barrier for every thread, so a descheduled thread stalls each small
+    op (three 64x64 CPU frames took 90 s at 8 threads beside six busy
+    processes on 8 cores, 0.4 s at one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 NO_ID = int(tsplat._NO_ID)
 
@@ -1116,9 +1133,10 @@ def test_cap_tail_spills_through_footprint(monkeypatch):
 @pytest.mark.parametrize("unported", [
     dict(megakernel=False), dict(chunked_raster=False),
     dict(compact_raster=False), dict(raster_mode="sorted"),
-    dict(frame_fusion=True), dict(footprint=1),
+    dict(frame_fusion=True), dict(footprint=1, frame_fusion=True),
 ])
 def test_unported_render_arms_raise(unported):
+    """Each arm the port lacks raises, footprint 1 (ported) or not."""
     from point_cloud_tpu_torch.render.streaming import CellStreamer
 
     meta = TMetadata()
@@ -1138,6 +1156,125 @@ def test_footprint_above_the_kernels_window_raises():
         width=32, height=24, footprint=tsplat.MAX_WINDOW + 1), device="cpu")
     with pytest.raises(ValueError, match="footprint"):
         renderer.render(CellStreamer(meta), tcamera.Camera())
+
+
+def test_footprint_129_renders_in_the_reference_only():
+    """The one footprint the port refuses where the reference draws: the
+    JAX raster takes a 129-px window (a splat lights more pixels than the
+    ladder's widest rung, 65 x 65, could), the port raises ValueError
+    (its kernel's windows end at splat.MAX_WINDOW = 128)."""
+    from point_cloud_tpu.render.renderer import RenderSettings
+    from point_cloud_tpu_torch.render.streaming import CellStreamer
+
+    _, rsplat = jax_render()
+    w, h = 320, 240
+    view_pos, ndc, radius, ids, proj = splat_rows(3, 4, w, h, 120.0)
+    fb = rsplat.rasterize_splats(
+        rsplat.make_framebuffer(h, w), view_pos, ndc, radius, ids,
+        np.ones(4, bool), proj, height=h, width=w, footprint=129,
+        voronoi=True)
+    lit = np.bincount(np.asarray(fb.point_id)[np.asarray(fb.point_id)
+                                               != NO_ID])
+    assert lit.max() > 65 * 65
+    meta = TMetadata()
+    renderer = TRenderer(meta, port_settings(RenderSettings(
+        width=w, height=h, footprint=129)), device="cpu")
+    with pytest.raises(ValueError, match="footprint 129"):
+        renderer.render(CellStreamer(meta), tcamera.Camera())
+
+
+# --- footprint 1 ------------------------------------------------------------
+
+
+def footprint_one_buckets(tmp_path, monkeypatch, n=25_000):
+    """The port's footprint-1 frame of the corridor at 128x96 on the CPU:
+    (input plane, arguments, keywords, output plane) of each bucket."""
+    from point_cloud_tpu.render.renderer import RenderSettings
+
+    meta = make_store(tmp_path, corridor(n, seed=61))
+    captured = []
+    bucket_pass = tsplat.render_bucket_pass
+
+    def capture(framebuffer, *args, **kw):
+        fb_in = framebuffer.packed.clone()
+        out = bucket_pass(framebuffer, *args, **kw)
+        captured.append((fb_in, args, kw, out[0].packed.clone()))
+        return out
+
+    monkeypatch.setattr(tsplat, "render_bucket_pass", capture)
+    render_port(meta, tmp_path, corridor_camera(meta),
+                RenderSettings(width=128, height=96, footprint=1))
+    return captured
+
+
+def test_footprint_one_frame_matches_numpy_oracle(tmp_path, monkeypatch):
+    """Every bucket of a footprint-1 frame, through the plain versions,
+    equals the NumPy oracle rasterizer at k = 1 over the bucket's kept rows
+    (the plain cull's), from the bucket's input plane, bit for bit; the
+    ladder's classes still rank the rows for the counts."""
+    captured = footprint_one_buckets(tmp_path, monkeypatch)
+    assert len(captured) > 1
+    for fb_in, args, kw, fb_out in captured:
+        (positions, hier_base, valid, ids, view, proj, cam_pos, spacings,
+         fars, sbd, maxh, thresholds) = args
+        assert kw["footprint"] == 1 and kw["sub_ks"] == ()
+        assert kw["use_occlusion"] and kw["use_pyramid"]
+        assert kw["overflow_ks"] == (2, 3, 4, 5, 6, 7, 8, 9, 17, 33, 65)
+        h, w = kw["height"], kw["width"]
+        plane_in = tsplat.Framebuffer(fb_in)
+        depth = tsplat.framebuffer_depth(plane_in, h, w)
+        keep, _, view_pos, ndc, radius, _, _ = (
+            tkernel.cull_classify_reference(
+                positions, hier_base, valid, view, proj, cam_pos, spacings,
+                fars, sbd, maxh, thresholds, w, h, depth=depth,
+                coarse=tkernel.coarse_depth_grid(depth)))
+        rows = np.flatnonzero(keep.numpy())
+        want_d, want_i = oracle_raster(
+            plane_in.depth.numpy(), plane_in.point_id.numpy().astype(np.int64),
+            *oracle_fragments(view_pos.numpy()[rows], ndc.numpy()[rows],
+                              radius.numpy()[rows], ids.numpy()[rows],
+                              proj.numpy(), h, w, 1, kw["voronoi"]))
+        got = tsplat.Framebuffer(fb_out)
+        assert np.array_equal(got.point_id.numpy(), want_i)
+        assert bits_equal(got.depth.numpy(),
+                          np.where(want_d == 0, 0, want_d).astype(np.float32))
+    lit = (tsplat.Framebuffer(captured[-1][3]).point_id != NO_ID).sum()
+    assert lit > 1000
+
+
+@pytest.mark.parametrize("scene", ["cube", "corridor"])
+def test_footprint_one_frame_matches_jax_renderer(tmp_path, scene):
+    """The port's footprint-1 frame against the JAX renderer's, the first
+    frame (no compaction budget yet in the reference) and a steady second
+    one: the Frames contract (>= 99.9% equal pixels, depth within 1e-6
+    where they agree), the same visible count and the same landed
+    per-rung counts (the reference's cumulative fit counts)."""
+    from point_cloud_tpu.render.renderer import PointRenderer, RenderSettings
+
+    if scene == "cube":
+        rng = np.random.default_rng(18)
+        meta = make_store(tmp_path, rng.uniform(-50, 50, (20_000, 3)))
+        cam = rcamera.Camera()
+        cam.projection.far = meta.config.max_cell_size * 5.0
+        cam.look_at_aabb(meta.bounding_box)
+    else:
+        meta = make_store(tmp_path, corridor(seed=32))
+        cam = corridor_camera(meta)
+    settings = RenderSettings(width=160, height=120, footprint=1)
+    streamer, frustums = streamed(meta, tmp_path, cam, port=False)
+    ref = PointRenderer(meta, settings)
+    tmeta, tcam = port_metadata(meta), port_camera(cam)
+    tstreamer, tfrustums = streamed(tmeta, tmp_path, tcam, port=True)
+    port = TRenderer(tmeta, port_settings(settings), device="cpu")
+    for _ in range(2):
+        rgb_r, depth_r, stats_r = ref.render(streamer, cam, frustums)
+        rgb_t, depth_t, stats_t = port.render(tstreamer, tcam, tfrustums)
+        same = (rgb_r == rgb_t).all(axis=2)
+        assert same.mean() >= 0.999, same.mean()
+        assert np.abs(depth_r - depth_t)[same].max() <= 1e-6
+        assert stats_t["points_visible"] == stats_r["points_visible"] > 0
+        assert port._survivor_counts == ref._survivor_counts
+        assert (port.framebuffer.point_id != NO_ID).sum() > 1000
 
 
 def test_frame_without_cells_is_clear():
@@ -1299,6 +1436,38 @@ class TestKernelsOnCard:
             raster=tsplat.splat_raster_reference)
         assert torch.equal(vec_k, vec_p) and int(vec_k[0]) > 0
         assert torch.equal(fb_k.packed, fb_p.packed)
+
+    def test_footprint_one_bucket_pass_matches_plain(self, cuda_device):
+        """At footprint 1 a bucket pass is one K1 and one K2 launch (one
+        k = 1 segment over every kept row) and equals its plain twin,
+        splats of every rung of the ladder included."""
+        arrays, depth, (w, h) = cull_scene(29, n=1 << 15)
+        overs = (2, 3, 4, 5, 6, 7, 8, 9, 17, 33, 65)
+        thr = as_t(np.array([k / 2 for k in (1,) + overs],
+                            np.float32)).to(cuda_device)
+        t = {k: as_t(v).to(cuda_device) for k, v in arrays.items()}
+        ids = torch.arange(1, (1 << 15) + 1, dtype=torch.int32,
+                           device=cuda_device)
+        args = (t["positions"], t["hier_base"], t["valid"], ids, t["view"],
+                t["projection"], t["cam_pos"], t["spacings"],
+                t["far_distances"], True, 3, thr)
+        kw = dict(height=h, width=w, footprint=1, voronoi=True,
+                  use_occlusion=True, use_pyramid=True, overflow_ks=overs)
+        fb0 = tsplat.make_framebuffer(h, w, cuda_device)
+        fb0.packed.view(-1)[: h * w // 2] = int(tsplat._CLEAR_WORD) - (1 << 40)
+        k1, k2 = tkernel.launches, tsplat.launches
+        fb_k, vec_k = tsplat.render_bucket_pass(
+            tsplat.Framebuffer(fb0.packed.clone()), *args, **kw)
+        torch.cuda.synchronize()
+        assert (tkernel.launches, tsplat.launches) == (k1 + 1, k2 + 1)
+        fb_p, vec_p = tsplat.render_bucket_pass(
+            tsplat.Framebuffer(fb0.packed.clone()), *args, **kw,
+            cull=tkernel.cull_classify_reference,
+            raster=tsplat.splat_raster_reference)
+        assert torch.equal(vec_k, vec_p) and int(vec_k[0]) > 0
+        assert (vec_k[2:] > 0).sum() > 3  # kept rows in several rungs
+        assert torch.equal(fb_k.packed, fb_p.packed)
+        assert (fb_k.packed != fb0.packed).sum() > 1000
 
     def test_frame_on_card_matches_cpu(self, cuda_device, tmp_path):
         meta = make_store(tmp_path, corridor(20_000, seed=51))

@@ -28,6 +28,19 @@ from point_cloud_tpu_torch.viewer import Viewer as TViewer
 from point_cloud_tpu_torch.viewer import ViewerInput as TInput
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the test workers
+    share the machine's cores, and torch's parallel regions wait at a
+    barrier for every thread, so a descheduled thread stalls each small
+    op (three 64x64 CPU frames took 90 s at 8 threads beside six busy
+    processes on 8 cores, 0.4 s at one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def make_store(path, n=20_000, seed=14):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
