@@ -155,28 +155,35 @@ def cuda_ms(fn, reps: int = 7, setup=None) -> float:
     return statistics.median(times)
 
 
+PROFILE_TRIES = 3
+
+
 def device_kernel_ms(torch, fn, names: tuple, reps: int = 20) -> float:
     """Device time a call of ``fn`` spends in the kernels whose names hold
     one of ``names``: ``fn()`` run ``reps`` times under torch.profiler,
     those kernels' summed activity over ``reps``. The wrapper's host work
-    and any other device work in ``fn`` are left out. Raises if no such
-    kernel ran."""
+    and any other device work in ``fn`` are left out. A profile that holds
+    no device activity of those kernels is taken again, up to
+    PROFILE_TRIES profiles (a run on the H100 once lost a whole
+    profile's device events); raises if none saw such a kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     warm_clock(torch)
     fn()  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(name in e.name for name in names)]
-    if not spans:
-        raise AssertionError(f"the profiler saw no kernel named {names}")
-    return sum(spans) / reps / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(name in e.name for name in names)]
+        if spans:
+            return sum(spans) / reps / 1e3
+    raise AssertionError(f"the profiler saw no kernel named {names} in "
+                         f"{PROFILE_TRIES} profiles")
 
 
 def sort_keys(kind: str, n: int, rng):
@@ -1300,6 +1307,386 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
     return result
 
 
+# --- phase 7: the render arms -------------------------------------------------
+
+ARM_FRAMES = 4
+ARM_YAW, ARM_PITCH = 0.5, -0.4  # the first orbit pose of phase 6
+# name: the arm's settings. Each renders ARM_FRAMES frames at one pose;
+# frames 2 and later take the classed, sorted and budget paths
+ARMS = {
+    "multi_dispatch": dict(megakernel=False),
+    "classing_true": dict(megakernel=False, classing=True),
+    "classing_false": dict(megakernel=False, classing=False),
+    "cascade": dict(megakernel=False, fused_compaction=False),
+    "no_compaction": dict(compact_raster=False),
+    "budget": dict(chunked_raster=False),
+    "fusion": dict(frame_fusion=True),
+    "sorted": dict(raster_mode="sorted"),
+    "sorted_classing_true": dict(raster_mode="sorted", classing=True),
+}
+# the sorted arms: "auto" sorts the buckets where a splat overflows the
+# footprint, classing on sorts every bucket with kept rows
+SORTED_ARMS = ("sorted", "sorted_classing_true")
+# The arms fall into three groups whose steady frames (frame 4) are equal
+# within a group (the reference's image identities): the chunked
+# megakernel's, whose overflow rungs draw at most their caps of rows and
+# the rest clipped through the footprint window (the default arm, and
+# frame fusion); the ladders with no cap (the multi-dispatch arms, the
+# budget megakernel, the sorted raster), which draw every row of a rung
+# through its own window; and the arms that draw every kept row through
+# the footprint window. The first two agree when no rung passes its cap,
+# all three when no splat is wider than the footprint.
+ARM_GROUPS = {
+    "default": ("fusion",),
+    "multi_dispatch": ("classing_true", "cascade", "budget", "sorted",
+                       "sorted_classing_true"),
+    "classing_false": ("no_compaction",),
+}
+# arms equal to another arm on every frame, the first (no history) too
+EVERY_FRAME = {"fusion": "default", "sorted": "multi_dispatch",
+               "sorted_classing_true": "classing_true"}
+# f32 operations a fragment of K3 does (two subtracts, two divides, two
+# multiplies and an add for |p|^2, the circle and screen tests; the
+# voronoi depth's subtract, multiply, add, multiply, add and divide)
+K3_OPS_PER_FRAGMENT = 20
+
+
+def arm_pose(viewer) -> None:
+    """The camera of phase 6's first pose (yaw ARM_YAW, pitch ARM_PITCH,
+    twice the cloud's extent from its centre), streamed in."""
+    import numpy as np
+
+    from point_cloud_tpu_torch.render.fly_cam import FlyCam
+
+    bbox = viewer.metadata.bounding_box
+    center = bbox.center()
+    d = float(np.linalg.norm(bbox.extends())) * 2.0
+    pos = center + np.array([
+        d * np.cos(ARM_YAW) * np.cos(ARM_PITCH),
+        d * np.sin(ARM_YAW) * np.cos(ARM_PITCH),
+        -d * np.sin(ARM_PITCH)], np.float32)
+    viewer.camera.transform.translation = pos.astype(np.float32)
+    viewer.camera.transform.look_at(center,
+                                    np.array([0.0, 0.0, 1.0], np.float32))
+    viewer.fly_cam = FlyCam.from_transform(viewer.camera.transform)
+    viewer._camera_dirty = True
+    settle(viewer)
+
+
+class SortedCapture:
+    """Wraps the sorted raster's three stages in ``splat`` while it is
+    installed: every bucket's K3 arguments and columns, the sorted columns
+    and the plane before the merge, kept for the checks after the run.
+    The wrappers count nothing of the kernels: the kernels' own wrappers
+    do."""
+
+    def __init__(self, splat):
+        self.splat = splat
+        self.real = (splat.emit_fragment_columns, splat._sort4_frags,
+                     splat.sorted_merge)
+        self.buckets = []
+
+    def __enter__(self):
+        emit, sort_frags, merge = self.real
+
+        def emit_wrap(*args):
+            cols = emit(*args)
+            self.buckets.append({"args": args, "cols": cols})
+            return cols
+
+        def sort_wrap(*cols):
+            out = sort_frags(*cols)
+            self.buckets[-1]["sorted"] = out
+            return out
+
+        def merge_wrap(fb, pix, bits, ids):
+            self.buckets[-1]["fb_in"] = fb.clone()
+            out = merge(fb, pix, bits, ids)
+            self.buckets[-1]["fb_out"] = fb.clone()
+            return out
+
+        (self.splat.emit_fragment_columns, self.splat._sort4_frags,
+         self.splat.sorted_merge) = emit_wrap, sort_wrap, merge_wrap
+        return self
+
+    def __exit__(self, *exc):
+        (self.splat.emit_fragment_columns, self.splat._sort4_frags,
+         self.splat.sorted_merge) = self.real
+
+
+def capped_rungs(renderer, scene) -> list:
+    """[bucket, k, rows, cap] for each overflow rung of ``renderer``'s
+    last frame whose landed rows passed the chunked megakernel's cap
+    (splat.rung_chunk_rows(k, n) * RUNG_CAP_CHUNKS, n the bucket's padded
+    rows)."""
+    from point_cloud_tpu_torch.render import splat
+
+    cells = renderer.gather_points(scene[0], scene[1])
+    fp = renderer.settings.footprint
+    out = []
+    for bucket in sorted({c[0] for c in cells}):
+        n = renderer._bucket_device_arrays(
+            [c for c in cells if c[0] == bucket])[0].shape[0]
+        for k in renderer._overflow_ladder():
+            rows = renderer._survivor_counts.get((bucket, k), 0)
+            cap = splat.rung_chunk_rows(k, n) * splat.RUNG_CAP_CHUNKS
+            if k > fp and rows > cap:
+                out.append([bucket, k, rows, cap])
+    return out
+
+
+def frame_planes(renderer, out) -> tuple:
+    rgb, depth, stats = out
+    return rgb, depth, renderer.framebuffer.point_id.cpu(), stats
+
+
+def same_frame(np, torch, a, b) -> bool:
+    """rgb and ids identical, depth equal by value (+-0 agree)."""
+    return (np.array_equal(a[0], b[0]) and torch.equal(a[2], b[2])
+            and np.array_equal(a[1], b[1])
+            and a[3]["points_visible"] == b[3]["points_visible"])
+
+
+def fragments_bound_ms(length: int, rows: int, fragments: int):
+    """Least time for K3 on one bucket: bytes at the HBM rate (each of
+    the ``length`` slots written once, 16 B; each of the ``rows`` drawn
+    rows read once, 28 B: its perm entry, view_pos.z, ndc, radius and id)
+    against K3_OPS_PER_FRAGMENT f32 operations for each of the
+    ``fragments`` slots of drawn rows at the f32 peak; the larger and
+    which it is."""
+    bytes_ms = (16 * length + 28 * rows) / HBM_BYTES_PER_S * 1e3
+    ops_ms = K3_OPS_PER_FRAGMENT * fragments / PEAK_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
+def merge_bound_ms(n: int, winners: int):
+    """Least time for K4 on one bucket: bytes at the HBM rate (the pixel
+    column read once, 4 B a row; a winner's depth bits and id, 8 B, and
+    its framebuffer word read and written, 16 B) against two integer
+    compares a row at the f32 peak; the larger and which it is."""
+    bytes_ms = (4 * n + 24 * winners) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n / PEAK_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
+def check_sorted_bucket(torch, splat, sort, entry) -> dict:
+    """K3, sort4 and K4 of one captured bucket against their plain
+    versions on the card, on the same inputs: every column and the plane
+    bit for bit."""
+    args, cols = entry["args"], entry["cols"]
+    want = splat.emit_fragment_columns_reference(*args)
+    for name, g, r in zip(("pix", "bits", "ids", "arrival"), cols, want):
+        if not torch.equal(g, r):
+            raise AssertionError(f"emit_fragments != plain in {name}: max "
+                                 f"abs err {abs_err(torch, g, r)}")
+    ref_sorted = sort.sort4_reference(*cols)
+    for g, r in zip(entry["sorted"], ref_sorted):
+        if not torch.equal(g, r):
+            raise AssertionError(f"sort4 != plain at {cols[0].shape[0]} "
+                                 "fragment rows")
+    fb_plain = entry["fb_in"].clone()
+    splat.sorted_merge_reference(fb_plain, *entry["sorted"][:3])
+    torch.cuda.synchronize()
+    if not torch.equal(fb_plain, entry["fb_out"]):
+        raise AssertionError("sorted_merge != plain: max abs err "
+                             f"{abs_err(torch, fb_plain, entry['fb_out'])}")
+    pix = entry["sorted"][0]
+    first = torch.ones_like(pix, dtype=torch.bool)
+    first[1:] = pix[1:] != pix[:-1]
+    classes, counts = args[10], args[6]
+    rows = [min(int(counts[c.cls]), c.rows) for c in classes]
+    return {"length": int(pix.shape[0]),
+            "fragments": splat.fragment_total(classes),
+            "classes": [[c.k, c.rows] for c in classes],
+            "rows": sum(rows),
+            "tested": sum(r * c.k * c.k for r, c in zip(rows, classes)),
+            "lit": int((cols[0] != int(splat._NO_ID)).sum()),
+            "winners": int((first & (pix != int(splat._NO_ID))).sum()),
+            "max_abs_err": 0}
+
+
+def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
+    """Phase 7: every render arm for ARM_FRAMES frames at one pose on the
+    2^23-point store at 1280x720, from zero launch counts; then the
+    frames against the default arm's and against the CPU, and K3, sort4
+    and K4 on every bucket of the sorted frames against their plain
+    versions."""
+    from point_cloud_tpu_torch.ops import sort
+    from point_cloud_tpu_torch.render import kernel, splat
+    from point_cloud_tpu_torch.render.renderer import (
+        PointRenderer, RenderSettings,
+    )
+    from point_cloud_tpu_torch.viewer import Viewer
+
+    t_phase = time.perf_counter()
+    viewer = Viewer(RenderSettings(width=FRAME_W, height=FRAME_H),
+                    device="cuda")
+    viewer.load_metadata(store / "metadata.json")
+    arm_pose(viewer)
+    scene = (viewer.streamer, viewer.camera, viewer._frustums)
+
+    def settings(arm: dict):
+        return RenderSettings(width=FRAME_W, height=FRAME_H, **arm)
+
+    def run(arm: dict, device="cuda"):
+        renderer = PointRenderer(viewer.metadata, settings(arm),
+                                 device=device)
+        frames, ms = [], []
+        for _ in range(ARM_FRAMES if device == "cuda" else 1):
+            t0 = time.perf_counter()
+            out = renderer.render(*scene)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            frames.append(frame_planes(renderer, out))
+        return frames, ms, renderer
+
+    default, default_ms, default_r = run({})
+    # the main path's run: every count starts at 0 here
+    kernel.launches = splat.launches = 0
+    splat.fragment_launches = splat.merge_launches = 0
+    sort.launches = 0
+    sort.launches_by_n.clear()
+    runs = {}
+    capture = SortedCapture(splat)
+    sorted_launches = {}
+    for name, arm in ARMS.items():
+        if name not in SORTED_ARMS:
+            runs[name] = run(arm)
+            continue
+        before = (len(capture.buckets), splat.fragment_launches,
+                  sort.launches, splat.merge_launches)
+        with capture:
+            runs[name] = run(arm)
+        sorted_launches[name] = {
+            "buckets_sorted": len(capture.buckets) - before[0],
+            "emit_fragments": splat.fragment_launches - before[1],
+            "sort4": sort.launches - before[2],
+            "sorted_merge": splat.merge_launches - before[3]}
+    torch.cuda.synchronize()
+    launches = {"cull_classify": kernel.launches,
+                "splat_raster": splat.launches,
+                "emit_fragments": splat.fragment_launches,
+                "sorted_merge": splat.merge_launches, "sort4": sort.launches}
+    arms_by_n = dict(sort.launches_by_n)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the arms did not run every kernel: {launches}")
+    for counts in sorted_launches.values():
+        if len(set(counts.values())) != 1:
+            raise AssertionError("a sorted arm launched K3, sort4 and K4 not "
+                                 f"once a non-empty bucket: {sorted_launches}")
+    if not capture.buckets:
+        raise AssertionError("the sorted arms sorted no bucket")
+
+    # the frames: steady frames within their group, the sorted and fused
+    # arms every frame against their twins, the first frame against the
+    # port's CPU renderer
+    frames_of = {"default": default, **{k: v[0] for k, v in runs.items()}}
+    for lead, members in ARM_GROUPS.items():
+        for name in members:
+            if not same_frame(np, torch, frames_of[name][-1],
+                              frames_of[lead][-1]):
+                raise AssertionError(f"arm {name}: steady frame != {lead}'s")
+    for name, twin in EVERY_FRAME.items():
+        for i, (a, b) in enumerate(zip(frames_of[name], frames_of[twin])):
+            if not same_frame(np, torch, a, b):
+                raise AssertionError(f"arm {name}: frame {i + 1} != {twin}'s")
+    capped = capped_rungs(default_r, scene)
+    overflow = any(v > 0 for (_, k), v in default_r._survivor_counts.items()
+                   if isinstance(k, int) and k > default_r.settings.footprint)
+    agree = {"default=multi_dispatch": same_frame(
+        np, torch, default[-1], frames_of["multi_dispatch"][-1]),
+        "multi_dispatch=classing_false": same_frame(
+            np, torch, frames_of["multi_dispatch"][-1],
+            frames_of["classing_false"][-1])}
+    if not capped and not agree["default=multi_dispatch"]:
+        raise AssertionError("no rung passes its cap, yet the chunked and "
+                             "the uncapped ladders' frames differ")
+    if not overflow and not agree["multi_dispatch=classing_false"]:
+        raise AssertionError("no splat overflows the footprint, yet the "
+                             "footprint-only frames differ")
+    checks = {}
+    cpu_s = 0.0
+    for name, (frames, ms, _) in runs.items():
+        t0 = time.perf_counter()
+        cpu_frames, _, _ = run(ARMS[name], device="cpu")
+        cpu_s += time.perf_counter() - t0
+        if not same_frame(np, torch, frames[0], cpu_frames[0]):
+            raise AssertionError(f"arm {name}: frame 1 cuda != cpu")
+        if frames[-1][3]["points_visible"] <= 0:
+            raise AssertionError(f"arm {name} shows nothing")
+        checks[name] = {
+            "frame_ms": ms, "median_ms_after_first": statistics.median(ms[1:]),
+            "points_visible": frames[-1][3]["points_visible"],
+            "buckets": frames[-1][3]["buckets"],
+            "lit_pixels": int((frames[-1][2] != int(splat._NO_ID)).sum()),
+            "group": next(lead for lead, members in ARM_GROUPS.items()
+                          if name == lead or name in members)}
+
+    # K3, sort4 and K4 on every bucket of the sorted frames
+    buckets = [check_sorted_bucket(torch, splat, sort, e)
+               for e in capture.buckets]
+    lengths = {b["length"] for b in buckets}
+    if set(arms_by_n) - lengths:
+        raise AssertionError(f"lengths {sorted(set(arms_by_n) - lengths)} "
+                             "sorted but not checked")
+    sort_checked.update(lengths)
+    big = max(capture.buckets, key=lambda e: e["cols"][0].shape[0])
+    big_stats = max(buckets, key=lambda b: b["length"])
+    emit_t = time_kernel(
+        torch, lambda: splat.emit_fragment_columns(*big["args"]),
+        lambda: splat.emit_fragment_columns_reference(*big["args"]),
+        ("emit_fragments_kernel",), plain_reps=3, setup=l2_flush(torch))
+    fb_big = big["fb_in"].clone()
+    merge_t = time_kernel(
+        torch, lambda: splat.sorted_merge(fb_big, *big["sorted"][:3]),
+        lambda: splat.sorted_merge_reference(fb_big, *big["sorted"][:3]),
+        ("sorted_merge_kernel",), plain_reps=3,
+        setup=lambda: fb_big.copy_(big["fb_in"]))
+    sort_by_n = {}
+    for n in sorted(lengths):
+        cols = next(e["cols"] for e in capture.buckets
+                    if e["cols"][0].shape[0] == n)
+        sort_by_n[n] = {
+            "ms": device_kernel_ms(torch, lambda: sort.sort4(*cols),
+                                   ("sort4_tile", "sort4_merge")),
+            "wrapper_ms": cuda_ms(lambda: sort.sort4(*cols)),
+            "plain_ms": cuda_ms(lambda: sort.sort4_reference(*cols), reps=3),
+            "bound_ms": sort4_bound_ms(n)[0]}
+    e_bound, e_by = fragments_bound_ms(big_stats["length"], big_stats["rows"],
+                                       big_stats["tested"])
+    m_bound, m_by = merge_bound_ms(big_stats["length"], big_stats["winners"])
+    result = {
+        "phase": "arms", "ok": True, "width": FRAME_W, "height": FRAME_H,
+        "pose": {"yaw": ARM_YAW, "pitch": ARM_PITCH}, "frames": ARM_FRAMES,
+        "default_ms": default_ms, "arms": checks, "launches": launches,
+        "sorted_launches": sorted_launches, "sort4_launches_by_n": arms_by_n,
+        "sorted_buckets": buckets, "default_overflows": overflow,
+        "capped_rungs": capped, "groups_agree": agree,
+        "cpu_s": cpu_s, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    for name, c in checks.items():
+        print(f"arm {name}: median frame {c['median_ms_after_first']:.1f} ms "
+              f"(frames 2-{ARM_FRAMES}), {c['points_visible']} points "
+              f"visible, {c['buckets']} buckets", flush=True)
+    print(f"arms {', '.join(SORTED_ARMS)}: fragment rows a sorted bucket "
+          f"{[b['length'] for b in buckets]} (sorted buckets by arm: "
+          f"{ {k: v['buckets_sorted'] for k, v in sorted_launches.items()} })",
+          flush=True)
+    viewer.close()
+    return {
+        "result": result,
+        "emit": {**emit_t, "length": big_stats["length"],
+                 "rows": big_stats["rows"], "tested": big_stats["tested"],
+                 "bound_ms": e_bound, "bound_by": e_by},
+        "merge": {**merge_t, "length": big_stats["length"],
+                  "winners": big_stats["winners"], "bound_ms": m_bound,
+                  "bound_by": m_by},
+        "sort_by_n": sort_by_n,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1338,12 +1725,14 @@ def main() -> int:
 
     kernel = phase_kernel(torch, np, sort)
     phase_pass(torch, np, dedup, get_pipeline)
+    sort_checked = {1 << log_n for log_n in SORT_SIZES}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        sliced = phase_slice(np, {1 << log_n for log_n in SORT_SIZES}, tmp)
+        sliced = phase_slice(np, sort_checked, tmp)
         framed = phase_frame(torch, np, tmp / "device-native", tmp)
         served = phase_serve(torch, np, tmp / "device-native", tmp, smi,
                              framed["raster"]["sm_clock_mhz_under_load"])
+        armed = phase_arms(torch, np, tmp / "device-native", sort_checked)
     pulled = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "point_cloud_tpu", "bench"))
     if pulled:
@@ -1361,11 +1750,23 @@ def main() -> int:
     bound_ms, bound_by = sort4_bound_ms(main_n)
     frame_launches = framed["frame"]["launches"]
     cull, raster = framed["cull"], framed["raster"]
+    arm_launches = armed["result"]["launches"]
     by_path = {name: {"orbit": frame_launches[name],
                       "serve": served["launches"][name],
-                      "window": served["window"]["launches"][name]}
+                      "window": served["window"]["launches"][name],
+                      "arms": arm_launches[name]}
                for name in frame_launches}
     fp1 = served["footprint1"]
+    emit_k, merge_k = armed["emit"], armed["merge"]
+    sort_ms_by_n = {n: statistics.median(t)
+                    for n, t in kernel["sort_ms_by_n"].items()}
+    sort_plain_by_n = {n: statistics.median(t)
+                       for n, t in kernel["plain_ms_by_n"].items()}
+    sort_device_by_n = dict(kernel["sort_device_ms_by_n"])
+    for n, t in armed["sort_by_n"].items():
+        sort_ms_by_n[n] = t["wrapper_ms"]
+        sort_plain_by_n[n] = t["plain_ms"]
+        sort_device_by_n[n] = t["ms"]
     emit({"kernels": [{
         "name": "sort4", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/sort4.cu",
@@ -1384,14 +1785,14 @@ def main() -> int:
                                 "by_n": sliced["sort4_launches_by_n"]},
             "--device": {"launches": sliced["device_sort4_launches"],
                          "by_n": sliced["device_sort4_launches_by_n"]},
+            "arms": {"launches": arm_launches["sort4"],
+                     "by_n": armed["result"]["sort4_launches_by_n"]},
         },
-        "bound_ms_by_n": {n: sort4_bound_ms(n)[0]
-                          for n in kernel["sort_ms_by_n"]},
-        "ms_by_n": kernel["sort_device_ms_by_n"],
-        "wrapper_ms_by_n": {n: statistics.median(t)
-                            for n, t in kernel["sort_ms_by_n"].items()},
-        "plain_ms_by_n": {n: statistics.median(t)
-                          for n, t in kernel["plain_ms_by_n"].items()},
+        "checked_n": sorted(sort_checked),
+        "bound_ms_by_n": {n: sort4_bound_ms(n)[0] for n in sort_ms_by_n},
+        "ms_by_n": sort_device_by_n,
+        "wrapper_ms_by_n": sort_ms_by_n,
+        "plain_ms_by_n": sort_plain_by_n,
     }, {
         "name": "cull_classify", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/cull.cu",
@@ -1438,6 +1839,37 @@ def main() -> int:
         "ms_runs": raster["ms_runs"],
         "plain_ms_runs": raster["plain_ms_runs"],
         "unit": "the one raster launch of the frame's largest bucket",
+    }, {
+        "name": "emit_fragments", "route": "cuda",
+        "source": "point_cloud_tpu_torch/csrc/fragments.cu",
+        "replaces": "point_cloud_tpu/render/splat.py:372",
+        "launches": arm_launches["emit_fragments"], "max_abs_err": 0,
+        "ms": emit_k["ms"], "wrapper_ms": emit_k["wrapper_ms"],
+        "plain_ms": emit_k["plain_ms"], "bound_ms": emit_k["bound_ms"],
+        "bound_by": emit_k["bound_by"], "bound_memory": "HBM",
+        "timed_from": "a flushed L2",
+        "launches_by_path": {"arms": arm_launches["emit_fragments"]},
+        # no single PyTorch call expands splats into fragment columns
+        "library_ms": None,
+        "length": emit_k["length"], "rows": emit_k["rows"],
+        "tested_fragments": emit_k["tested"],
+        "ms_runs": emit_k["ms_runs"], "plain_ms_runs": emit_k["plain_ms_runs"],
+        "unit": "one launch on the sorted frame's largest bucket",
+    }, {
+        "name": "sorted_merge", "route": "cuda",
+        "source": "point_cloud_tpu_torch/csrc/sorted_merge.cu",
+        "replaces": "point_cloud_tpu/render/splat.py:537",
+        "launches": arm_launches["sorted_merge"], "max_abs_err": 0,
+        "ms": merge_k["ms"], "wrapper_ms": merge_k["wrapper_ms"],
+        "plain_ms": merge_k["plain_ms"], "bound_ms": merge_k["bound_ms"],
+        "bound_by": merge_k["bound_by"], "bound_memory": "HBM",
+        "launches_by_path": {"arms": arm_launches["sorted_merge"]},
+        # scatter_reduce_(..., "amin") over the winners is only the plain
+        # version's last step, not the same function
+        "library_ms": None,
+        "length": merge_k["length"], "winners": merge_k["winners"],
+        "ms_runs": merge_k["ms_runs"], "plain_ms_runs": merge_k["plain_ms_runs"],
+        "unit": "one launch on the sorted frame's largest bucket",
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

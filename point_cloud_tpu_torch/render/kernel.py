@@ -8,7 +8,10 @@ of render/kernel.py).
   integer compares after one divide), and the camera pass
   :func:`cull_classify`, whose callers :func:`_cull_body`,
   :func:`cull_classify_pass` and :func:`cull_lod_pass` keep the
-  reference's signatures and outputs.
+  reference's signatures and outputs; :func:`fit_counts`, the
+  multi-dispatch arm's cumulative counts; and two reference functions
+  that no frame calls, :func:`loaded_cells_member` (the WGSL binary
+  search) and :func:`compact_visible`.
 
 :func:`cull_classify` launches the hand-written kernel ``csrc/cull.cu``
 on a CUDA tensor, or raises; on a CPU tensor it runs
@@ -122,6 +125,38 @@ def hash_member(hash_table, targets):
     bucket = _hash_rows_torch(targets) & (nb - 1)
     cand = hash_table[bucket].reshape(-1, BUCKET_ROWS, 4)
     return (cand == targets[:, None, :]).all(dim=-1).any(dim=-1)
+
+
+def _lex_less(row_a, row_b):
+    """Elementwise lexicographic < between (..., 4) int32 key rows
+    (kernel.py:38-48)."""
+    a0, a1, a2, a3 = (row_a[..., i] for i in range(4))
+    b0, b1, b2, b3 = (row_b[..., i] for i in range(4))
+    return ((a0 < b0) | ((a0 == b0) & (a1 < b1))
+            | ((a0 == b0) & (a1 == b1) & (a2 < b2))
+            | ((a0 == b0) & (a1 == b1) & (a2 == b2) & (a3 < b3)))
+
+
+def loaded_cells_member(table, targets):
+    """Membership of (N, 4) i32 target rows in a row-sorted (M, 4) table:
+    the lock-step lexicographic binary search of kernel.py:139-161 (the
+    WGSL search, compute.wgsl:127-155). A reference function: the frame
+    uses :func:`hash_member`."""
+    m = table.shape[0]
+    n = targets.shape[0]
+    dev = targets.device
+    if m == 0:
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    lo = torch.zeros(n, dtype=torch.int64, device=dev)
+    hi = torch.full((n,), m, dtype=torch.int64, device=dev)
+    steps = max(1, int(np.ceil(np.log2(m + 1))) + 1)
+    for _ in range(steps):
+        mid = (lo + hi) // 2
+        less = _lex_less(table[mid.clamp(0, m - 1)], targets) & (mid < m)
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    found = (table[lo.clamp(0, m - 1)] == targets).all(dim=-1)
+    return (lo < m) & found
 
 
 def lod_select(positions, point_hierarchy, cell_sizes, num_hierarchies: int,
@@ -406,7 +441,27 @@ def cull_classify_pass(positions, hier_base, valid, view, projection,
         far_distances, size_by_distance, max_hierarchy,
         _catch_all(positions.device), width, height, depth=depth,
         coarse=coarse)
-    fits = keep[None, :] & (rmax[None, :] < fit_thresholds[:, None])
-    counts_vec = torch.cat([keep.sum().reshape(1), fits.sum(dim=1)])
     return (keep, hierarchy, ndc, view_pos, radius, rmax,
-            counts_vec.to(torch.int32))
+            fit_counts(keep, rmax, fit_thresholds))
+
+
+def fit_counts(keep, rmax, fit_thresholds):
+    """The "cum" counts vector of kernel.py:432-436: [kept total, then the
+    kept splats with rmax < fit_thresholds[i] for each rung], (W+1,) i32
+    on the device."""
+    fits = keep[None, :] & (rmax[None, :] < fit_thresholds[:, None])
+    return torch.cat([keep.sum().reshape(1),
+                      fits.sum(dim=1)]).to(torch.int32)
+
+
+def compact_visible(mask, *arrays):
+    """Stable compaction (kernel.py:440-451): the rows where ``mask``
+    holds gathered to the front, the tail filled from row 0. Returns
+    (count, compacted arrays). A reference function with no caller in the
+    frame."""
+    n = mask.shape[0]
+    count = mask.to(torch.int32).sum()
+    idx = torch.zeros(n, dtype=torch.int64, device=mask.device)
+    hits = torch.nonzero(mask).reshape(-1)
+    idx[: hits.shape[0]] = hits
+    return count, tuple(a[idx] for a in arrays)

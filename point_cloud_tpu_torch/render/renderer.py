@@ -4,33 +4,44 @@
 Visible cells are sorted by camera distance and grouped into
 ilog2(distance) buckets (reference point.rs:128-143); buckets render near
 to far, and each bucket's cull tests occlusion against the depth the
-nearer buckets left in the framebuffer. Each bucket is one
-:func:`~point_cloud_tpu_torch.render.splat.render_bucket_pass`: the cull
-and classify kernel, the rung ranking and one raster launch per window
-rung, all queued without a host sync. The frame ends in one packed
+nearer buckets left in the framebuffer. The frame ends in one packed
 device-to-host copy into pinned memory (image, the buckets' counts,
 optionally the depth plane) that :meth:`PointRenderer.render_finish`
-waits for.
+waits for; nothing before it waits on the card.
 
-The port renders the reference's default arm: the per-bucket megakernel
-with the chunked rung raster (renderer.py:536-580), and its footprint-1
-arm (renderer.py:879-886): every kept row through the 1x1 window, one
-segment of the same raster kernel. Settings that select another arm raise
-``NotImplementedError`` (ROADMAP.md): ``megakernel``, ``chunked_raster``
-and ``compact_raster`` off, ``raster_mode="sorted"`` and ``frame_fusion``
-on. ``classing`` and ``fused_compaction`` steer only the multi-dispatch
-arm, so they change nothing here.
+Every render arm of the reference runs (renderer.py:536-1005):
+
+- the bucket megakernel (``megakernel``, ``compact_raster``, not
+  ``raster_mode="sorted"``): one
+  :func:`~point_cloud_tpu_torch.render.splat.render_bucket_pass` a bucket
+  (K1, the rung ranking, one K2 launch), with chunked rungs
+  (``chunked_raster``) or static row budgets from the sticky pow2 ladder
+  (:meth:`PointRenderer._survivor_buffer_size`); with ``frame_fusion``
+  every bucket's chain and the packed resolve in one
+  :func:`~point_cloud_tpu_torch.render.splat.render_frame_pass` call;
+- the multi-dispatch ladder otherwise (:meth:`PointRenderer._multi_dispatch`):
+  K1 ranks the kept rows into the ``classing`` windows and lands the
+  "cum" counts; the classes raster through K2 (one launch over every
+  class's region of ``compact_classes``, or ``compact_rows`` class by
+  class without ``fused_compaction``), or with ``raster_mode="sorted"``
+  through the sorted raster: K3 emits every class's fragments as the four
+  sort columns, ``sort4`` orders them, K4 merges the first fragment of
+  each pixel run. A bucket without history, and ``compact_raster`` off,
+  raster every kept row through the footprint window.
 
 Two differences from the reference are deliberate. A ``footprint`` outside
 1 to ``splat.MAX_WINDOW`` raises ``ValueError`` where the reference draws
-any window. At footprint 1 the reference compacts the kept rows into a
-budget sized from the last frame (splat.py:65-93) and so can drop rows on
-the one frame after a jump in visibility; the port rasters every kept
-row.
+any window. At footprint 1 the default arm (megakernel, compact and
+chunked raster, scatter mode) rasters every kept row through the 1x1
+window, one segment of K2, where the reference runs its multi-dispatch arm
+with a budget sized from the last frame (splat.py:65-93) and so can drop
+rows on the one frame after a jump in visibility; every other arm at
+footprint 1 runs as the reference's does.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -39,7 +50,7 @@ import torch
 from ..core.metadata import Metadata
 from ..ops.dedup import pad_to_bucket
 from ..ops.runtime import resolve_device
-from . import splat
+from . import kernel, splat
 from .camera import Camera
 from .kernel import MAX_HIERARCHIES, build_loaded_cells_hash, lod_select
 from .streaming import CellStreamer
@@ -48,6 +59,11 @@ from .streaming import CellStreamer
 LARGE_WINDOWS = (9, 17, 33, 65)
 # sub-footprint rungs of the odd ladder (renderer.py:47-56)
 SMALL_WINDOWS = (1, 3, 5, 7)
+
+
+def raster_bucket(n: int, minimum: int = 1 << 10) -> int:
+    """Power-of-two raster buffer size (renderer.py:59-75)."""
+    return pad_to_bucket(n, minimum)
 
 
 @dataclass
@@ -80,23 +96,11 @@ class RenderSettings:
 
 
 def check_ported(settings: RenderSettings) -> None:
-    """Raise for a setting whose render arm the port does not have, or a
-    footprint outside the raster kernel's windows."""
+    """Raise for a footprint outside the raster kernel's windows, the one
+    setting the port refuses."""
     if not 1 <= settings.footprint <= splat.MAX_WINDOW:
         raise ValueError(f"footprint {settings.footprint}: the raster kernel "
                          f"draws windows of 1 to {splat.MAX_WINDOW} pixels")
-    unported = {
-        "megakernel=False": not settings.megakernel,
-        "chunked_raster=False": not settings.chunked_raster,
-        "compact_raster=False": not settings.compact_raster,
-        'raster_mode="sorted"': settings.raster_mode == "sorted",
-        "frame_fusion=True": bool(settings.frame_fusion),
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            f"render arm not ported yet ({', '.join(bad)}): the port renders "
-            "the chunked megakernel arm and footprint 1 only (ROADMAP.md)")
 
 
 def hierarchy_tables(metadata: Metadata) -> tuple[np.ndarray, np.ndarray]:
@@ -133,8 +137,9 @@ class PointRenderer:
         self._color_cache: dict = {}
         self._hash_cache = None
         self._const_cache = None
-        self._thresholds_cache = None
+        self._threshold_cache: dict = {}
         self._survivor_counts: dict = {}
+        self._buffer_sizes: dict = {}
 
     def gather_points(self, streamer: CellStreamer, camera: Camera):
         """Loaded cells as (bucket, distance, cell_id, points, generation),
@@ -197,18 +202,72 @@ class PointRenderer:
         ks += [k for k in LARGE_WINDOWS if k > s.footprint]
         return tuple(k for k in ks if k > s.footprint)
 
+    def _thresholds(self, ks: tuple) -> torch.Tensor:
+        """The (R,) f32 device thresholds k/2 of the rungs ``ks`` (one
+        rung, inf, for ``ks == ()``: every kept row in class 0), uploaded
+        once a ladder."""
+        dev = self._threshold_cache.get(ks)
+        if dev is None:
+            dev = self._threshold_cache[ks] = self._upload(np.asarray(
+                [k / 2.0 for k in ks] or [math.inf], np.float32))
+        return dev
+
     def _rungs(self) -> tuple[tuple, tuple, torch.Tensor]:
-        """(sub rungs, overflow rungs, (R,) f32 device thresholds k/2 of
-        the whole ladder), the tensor uploaded once per ladder."""
+        """(sub rungs, overflow rungs, thresholds) of the megakernel's
+        ladder."""
         s = self.settings
         subs = self._small_ladder() if s.sub_rungs else ()
         overs = self._overflow_ladder()
-        ks = subs + (s.footprint,) + overs
-        cached = self._thresholds_cache
-        if cached is None or cached[0] != ks:
-            cached = self._thresholds_cache = (
-                ks, self._upload(np.asarray([k / 2.0 for k in ks], np.float32)))
-        return subs, overs, cached[1]
+        return subs, overs, self._thresholds(subs + (s.footprint,) + overs)
+
+    def _ladder(self) -> tuple:
+        """The full window ladder (renderer.py:358-375): every small rung,
+        the footprint, the overflow rungs. The multi-dispatch arm's "cum"
+        counts count the kept splats that fit each."""
+        return (self._small_ladder() + (self.settings.footprint,)
+                + self._overflow_ladder())
+
+    def _survivor_buffer_size(self, key, n: int, minimum: int = 1 << 10):
+        """Sticky pow2 raster budget from the latest landed count of
+        ``key``; None until the key has one (renderer.py:310-332). The held
+        size changes only when the count outgrows it (under 15% headroom)
+        or shrinks well below it (under half used)."""
+        count = self._survivor_counts.get(key)
+        if count is None:
+            return None
+        held = self._buffer_sizes.get(key)
+        if held is not None and count * 1.15 <= held <= count * 2.6:
+            return held
+        held = raster_bucket(max(int(count * 1.3), 1), minimum)
+        self._buffer_sizes[key] = held
+        return held
+
+    def _mega_static(self, bucket: int, n: int, subs: tuple,
+                     overs: tuple) -> tuple:
+        """(out_size, overflow_rows, overflow_ks, sub_rows, sub_ks) of a
+        bucket's megakernel pass (renderer.py:545-616): no budgets for
+        chunked rungs; else the footprint raster's sticky budget (its own
+        landed count with sub rungs, the kept total without) and each
+        rung's on a coarse ladder."""
+        s = self.settings
+        if s.chunked_raster:
+            return (0, (), overs, (), subs)
+        held = self._survivor_buffer_size(
+            (bucket, s.footprint if subs else "a"), n)
+
+        def rung_budget(k, ladder=(64, 1024, 16384, 65536)):
+            held_k = self._survivor_buffer_size((bucket, k), n,
+                                                minimum=ladder[0])
+            v = min(held_k or ladder[0], n)
+            for c in ladder:
+                if v <= c:
+                    return min(c, n)
+            return n
+
+        return (min(held, n) if held else n,
+                tuple(rung_budget(k) for k in overs), overs,
+                tuple(rung_budget(k, ladder=(1024, 16384, 65536))
+                      for k in subs), subs)
 
     def _frame_constants(self, camera: Camera, far_distances: np.ndarray):
         """view, projection, camera position and far distances on the
@@ -267,10 +326,16 @@ class PointRenderer:
         _, sizes_dev, spacings_dev = self._const_cache
         view_dev, proj_dev, cam_dev, fars_dev = self._frame_constants(
             camera, far_distances)
+        consts = (view_dev, proj_dev, cam_dev, spacings_dev, fars_dev)
         use_occ = s.occlusion and not paused
         use_pyr = use_occ and s.depth_pyramid
         subs, overs, thresholds = self._rungs()
-        ladder = subs + (s.footprint,) + overs
+        # the megakernel's arms; footprint 1 with chunked rungs is the
+        # port's footprint-1 arm (module docstring)
+        use_mega = (s.megakernel and s.compact_raster
+                    and s.raster_mode != "sorted"
+                    and (s.footprint > 1 or s.chunked_raster))
+        fused = use_mega and s.frame_fusion
 
         cells = self.gather_points(streamer, camera)
         framebuffer = splat.make_framebuffer(s.height, s.width, dev)
@@ -279,6 +344,8 @@ class PointRenderer:
         total_in = 0
         frame_vecs: list = []
         frame_bucket_keys: list = []
+        fused_args: list = []
+        fused_static: list = []
         i = 0
         while i < len(cells):
             bucket = cells[i][0]
@@ -306,17 +373,27 @@ class PointRenderer:
                     id_base, id_base + n_real, dtype=np.int32)
                 ids_dev = self._upload(point_ids)
                 _bounded_put(self._ids_cache, ikey, ids_dev, 64)
-            framebuffer, counts_vec = splat.render_bucket_pass(
-                framebuffer, pos_dev, hier_base, valid_dev, ids_dev,
-                view_dev, proj_dev, cam_dev, spacings_dev, fars_dev,
-                s.size_by_distance, s.max_hierarchy, thresholds,
-                height=s.height, width=s.width, footprint=s.footprint,
-                voronoi=s.voronoi, use_occlusion=use_occ,
-                use_pyramid=use_pyr, overflow_ks=overs, sub_ks=subs)
-            # at footprint 1 the reference lands the cull's cumulative fit
-            # counts (renderer.py:667-669); exclusive counts of the same
-            # ladder land the same per-rung values
-            frame_vecs.append((bucket, ladder, counts_vec, "excl"))
+            rows = (pos_dev, hier_base, valid_dev, ids_dev)
+            if use_mega:
+                static = self._mega_static(bucket, n, subs, overs)
+                counts_vec = None  # the fused pass lands it in the pack
+                if fused:
+                    fused_args.append(rows)
+                    fused_static.append(static)
+                else:
+                    framebuffer, counts_vec = self._bucket_pass(
+                        framebuffer, rows, static, consts, thresholds,
+                        use_occ, use_pyr)
+                # at footprint 1 the reference lands the cull's cumulative
+                # fit counts (renderer.py:667-669); exclusive counts of the
+                # same ladder land the same per-rung values
+                frame_vecs.append((bucket, subs + (s.footprint,) + overs,
+                                   counts_vec, "excl"))
+            else:
+                counts_vec = self._multi_dispatch(
+                    framebuffer, bucket, rows, consts, use_occ, use_pyr)
+                frame_vecs.append((bucket, self._ladder(), counts_vec,
+                                   "cum"))
             all_colors.append(colors)
             frame_bucket_keys.append(bucket_key)
             id_base += n_real
@@ -333,28 +410,163 @@ class PointRenderer:
             color_dev = self._upload(color_table)
             _bounded_put(self._color_cache, ckey, color_dev, 16)
 
-        self.framebuffer = framebuffer
         vec_meta = [(b, ks, len(ks) + 1, kind) for b, ks, _, kind in frame_vecs]
         total_counts = sum(m[2] for m in vec_meta)
         stats = {"cells": len(cells), "points_in": total_in,
                  "buckets": len(frame_vecs)}
-        counts = (torch.cat([v for _, _, v, _ in frame_vecs]) if frame_vecs
-                  else torch.zeros(1, dtype=torch.int32, device=dev))
+        if fused_args and total_counts > splat.PACK_COUNTS:
+            # the packed tail cannot carry this frame's counts: the same
+            # chains bucket by bucket, then the synchronous readback
+            # (renderer.py:926-951)
+            for bi, (rows, static) in enumerate(zip(fused_args,
+                                                    fused_static)):
+                framebuffer, counts_vec = self._bucket_pass(
+                    framebuffer, rows, static, consts, thresholds, use_occ,
+                    use_pyr)
+                b, ks, _, kind = frame_vecs[bi]
+                frame_vecs[bi] = (b, ks, counts_vec, kind)
+            fused_args = []
         if total_counts <= splat.PACK_COUNTS:
-            packed = splat.pack_frame(framebuffer, color_dev, counts,
-                                      s.height, s.width, s.transfer_depth)
+            if fused_args:
+                packed, framebuffer = splat.render_frame_pass(
+                    tuple(fused_args), *consts, s.size_by_distance,
+                    s.max_hierarchy, color_dev, thresholds,
+                    height=s.height, width=s.width, footprint=s.footprint,
+                    voronoi=s.voronoi, use_occlusion=use_occ,
+                    bucket_static=tuple(fused_static),
+                    with_depth=s.transfer_depth, chunked=s.chunked_raster,
+                    use_pyramid=use_pyr)
+            else:
+                counts = (torch.cat([v for _, _, v, _ in frame_vecs])
+                          if frame_vecs
+                          else torch.zeros(1, dtype=torch.int32, device=dev))
+                packed = splat.pack_frame(framebuffer, color_dev, counts,
+                                          s.height, s.width, s.transfer_depth)
+            self.framebuffer = framebuffer
             return {"vec_meta": vec_meta, "stats": stats, "height": s.height,
                     "width": s.width, "with_depth": s.transfer_depth,
                     **_start_readback(packed)}
         # more counts than the packed tail holds: resolve and read back
         # synchronously (renderer.py:989-1005)
+        self.framebuffer = framebuffer
         rgb, depth = splat.resolve_framebuffer(framebuffer, color_dev,
                                                s.height, s.width)
+        counts = torch.cat([v for _, _, v, _ in frame_vecs])
         stats["points_visible"] = self._land_count_vecs(
             vec_meta, counts.cpu().numpy())
         return {"rgb": rgb.cpu().numpy(),
                 "depth": depth.cpu().numpy() if s.transfer_depth else None,
                 "stats": stats}
+
+    def _bucket_pass(self, framebuffer, rows, static, consts, thresholds,
+                     use_occ: bool, use_pyr: bool):
+        """One bucket's megakernel pass (:func:`splat.render_bucket_pass`)
+        with the frame's settings; returns (framebuffer, counts_vec)."""
+        s = self.settings
+        out_size, orows, oks, srows, sks = static
+        return splat.render_bucket_pass(
+            framebuffer, *rows[:4], *consts, s.size_by_distance,
+            s.max_hierarchy, thresholds, height=s.height, width=s.width,
+            footprint=s.footprint, voronoi=s.voronoi, use_occlusion=use_occ,
+            use_pyramid=use_pyr, overflow_ks=oks, sub_ks=sks,
+            out_size=out_size, overflow_rows=orows, sub_rows=srows,
+            chunked=s.chunked_raster)
+
+    def _multi_dispatch(self, framebuffer, bucket: int, rows, consts,
+                        use_occ: bool, use_pyr: bool):
+        """One bucket of the multi-dispatch ladder (renderer.py:648-889),
+        rastered into ``framebuffer`` in place; returns its "cum" counts
+        vector over the full ladder (:func:`kernel.fit_counts`).
+
+        Footprint classing: ``classing="auto"`` turns the ladder (the
+        footprint class, which then holds every small splat, and the
+        overflow rungs) on for a bucket the frame after an overflow count
+        lands; ``True`` always runs it, sub-footprint rungs included;
+        ``False`` never. K1 ranks the kept rows into the classes. A class
+        whose landed count is 0 is skipped; a bucket without landed counts
+        (its first sight), or with classing off, rasters its kept rows
+        through the footprint window, at most the kept total's sticky
+        budget of them when ``compact_raster`` is on."""
+        s = self.settings
+        pos_dev, hier_base, valid_dev, ids_dev = rows
+        view_dev, proj_dev, cam_dev, spacings_dev, fars_dev = consts
+        n = pos_dev.shape[0]
+        h, w, fp = s.height, s.width, s.footprint
+        landed = self._survivor_counts
+        overflow_ks = self._overflow_ladder()
+        auto = s.classing == "auto"
+        if auto:
+            wanted = any((landed.get((bucket, k)) or 0) > 0
+                         for k in overflow_ks)
+        else:
+            wanted = bool(s.classing)
+        use_classes = s.compact_raster and fp > 1 and wanted
+        windows = ()
+        if use_classes:
+            windows = ((fp,) if auto else self._small_ladder() + (fp,))
+            windows += overflow_ks
+        depth = coarse = None
+        if use_occ:
+            depth = splat.framebuffer_depth(framebuffer, h, w)
+            if use_pyr:
+                coarse = kernel.coarse_depth_grid(depth)
+        keep, _, view_pos, ndc, radius, rmax, rung = kernel.cull_classify(
+            pos_dev, hier_base, valid_dev, view_dev, proj_dev, cam_dev,
+            spacings_dev, fars_dev, s.size_by_distance, s.max_hierarchy,
+            self._thresholds(windows), w, h, depth=depth, coarse=coarse)
+        counts_vec = kernel.fit_counts(keep, rmax,
+                                       self._thresholds(self._ladder()))
+        row_args = (view_pos, ndc, radius, ids_dev)
+
+        def class_key(k):
+            # the auto ladder's footprint class holds every small splat:
+            # it sizes and skips from the bucket's kept total
+            return (bucket, "a") if auto and k == fp else (bucket, k)
+
+        outs = [self._survivor_buffer_size(
+            class_key(k), n, minimum=4 if k > fp else 1 << 10)
+            for k in windows]
+        if not use_classes or None in outs:
+            out_all = n  # no history, or no compaction: every kept row
+            if not use_classes and s.compact_raster:
+                held = self._survivor_buffer_size((bucket, "a"), n)
+                if held is not None and held < n:
+                    out_all = held
+            splat.raster_compacted(framebuffer, *row_args, keep, proj_dev, h,
+                                   w, fp, s.voronoi, out_all)
+            return counts_vec
+        live = [(ci, k, out_k) for ci, (k, out_k) in enumerate(zip(windows,
+                                                                   outs))
+                if landed.get(class_key(k)) != 0]
+        if not s.fused_compaction and s.raster_mode != "sorted":
+            for ci, k, out_k in live:  # class by class: compact, raster
+                splat.raster_compacted(framebuffer, *row_args, rung == ci,
+                                       proj_dev, h, w, k, s.voronoi,
+                                       min(out_k, n))
+            return counts_vec
+        if not live:  # every class skipped: nothing to raster
+            return counts_vec
+        perm, counts, offsets = splat.compact_classes(rung, len(windows))
+        if s.raster_mode == "sorted":
+            classes = tuple(splat.FragmentClass(k, ci, out_k)
+                            for ci, k, out_k in live)
+            length = pad_to_bucket(splat.fragment_total(classes),
+                                   minimum=1 << 10)
+            cols = splat.emit_fragment_columns(
+                *row_args, perm, offsets, counts, proj_dev, h, w, classes,
+                s.voronoi, length)
+            pix, bits, ids, _ = splat._sort4_frags(*cols)
+            splat.sorted_merge(framebuffer.packed, pix, bits, ids)
+            return counts_vec
+        # every class's slice in one K2 launch; a budget at or past the
+        # bucket drops nothing (renderer.py:857-874)
+        segments = tuple(
+            splat.Segment(k, ci, out_k if out_k < n else splat.NO_CAP, False)
+            for ci, k, out_k in live)
+        splat.splat_raster_segments(framebuffer.packed, *row_args, perm,
+                                    offsets, counts, proj_dev, h, w,
+                                    segments, s.voronoi)
+        return counts_vec
 
     def _land_count_vecs(self, vec_meta, flat) -> int:
         """Land a frame's counts vectors in ``_survivor_counts`` and return

@@ -23,13 +23,30 @@ smallest id, splat.py:262-298) in one comparison. The clear word is
   which expands the fragments with torch ops in the reference's order
   and ``scatter_reduce_(..., "amin")``s them chunk by chunk.
   :func:`splat_raster` is the same kernel on one segment.
-- :func:`render_bucket_pass` is the chunked arm of the reference's
-  bucket megakernel (splat.py:656-789): the cull (K1), the rung ranking
-  and the raster of the bucket's segments (K2).
+- :func:`render_bucket_pass` is the reference's bucket megakernel
+  (splat.py:656-835): the cull (K1), the rung ranking and one K2 launch
+  over the bucket's segments, with chunked rungs or with the budget arm's
+  static row budgets (:func:`budget_table`: a rung's rows past its budget
+  spill into the footprint raster). :func:`render_frame_pass` is frame
+  fusion: every bucket's pass, then the packed resolve, in one call.
+- The multi-dispatch arm's rasters (:func:`compact_perm`,
+  :func:`raster_compacted`, :func:`rasterize_splats`,
+  :func:`rasterize_class_slice`) are each one K2 segment whose cap is the
+  budget: rows past it are dropped as the reference's compaction drops
+  them.
+- The sorted raster: K3 (:func:`emit_fragment_columns`, the hand-written
+  ``csrc/fragments.cu``) writes a bucket's fragments as the four sort
+  columns, ``sort4`` orders them (:func:`_sort4_frags`), K4
+  (:func:`sorted_merge`, ``csrc/sorted_merge.cu``) merges the first
+  fragment of each pixel run into the plane. Each has a plain version
+  that a CPU tensor runs; :func:`emit_fragments` and
+  :func:`sorted_raster_merge_reference` keep the reference's functions
+  step by step for the tests.
 - :func:`resolve_framebuffer` and :func:`pack_frame` turn the plane into
   the frame the host reads.
 
-``launches`` counts the raster kernel's launches.
+``launches``, ``fragment_launches`` and ``merge_launches`` count the
+launches of K2, K3 and K4.
 """
 
 from __future__ import annotations
@@ -94,6 +111,24 @@ def compact_classes(rung, n_classes: int):
     scanned along the 13 rows (one block a row) and scatter_add_-ed the
     counts (every thread on 13 words) took ~1.5 ms and ~0.7 ms a 2^20-row
     bucket (chip_smoke.py's profiled frame, H100 80GB HBM3, 700 W)."""
+    dest, counts, offsets = rank_classes(rung, n_classes)
+    return class_perm(dest), counts, offsets
+
+
+def class_perm(dest):
+    """The (2N,) i32 ``perm`` of :func:`rank_classes`' ``dest``: row i at
+    slot dest[i]; the rows of no class (dest 2N) land in a dropped slot."""
+    n = dest.shape[0]
+    perm = torch.zeros(2 * n + 1, dtype=torch.int32, device=dest.device)
+    perm.scatter_(0, dest, torch.arange(n, dtype=torch.int32,
+                                        device=dest.device))
+    return perm[: 2 * n]
+
+
+def rank_classes(rung, n_classes: int):
+    """(dest, counts, offsets) of :func:`compact_classes`: ``dest`` (N,)
+    i64 is each row's slot in ``perm`` (offsets[c] + its rank in class c,
+    in row order), 2N for a row of no class."""
     n = rung.shape[0]
     dev = rung.device
     cls = torch.where(rung >= 0, rung, n_classes).long()
@@ -106,10 +141,36 @@ def compact_classes(rung, n_classes: int):
                          ends[:-1]])
     counts = ends - offsets
     dest = running.gather(0, cls[None, :])[0].long() - 1
-    dest = torch.where(cls < n_classes, dest, 2 * n)
-    perm = torch.zeros(2 * n + 1, dtype=torch.int32, device=dev)
+    return torch.where(cls < n_classes, dest, 2 * n), counts, offsets
+
+
+def compact_perm(keep, out_size: int):
+    """The index half of the reference's ``compact_rows`` (splat.py:65-95):
+    a stable compaction of the ``keep`` rows to ``out_size`` slots. Returns
+    the (out_size,) i32 ``perm``, whose first min(count, out_size) entries
+    are the kept rows in row order (the other slots hold row 0), and the
+    (1,) i32 ``count`` of kept rows, on the device. Kept rows past
+    ``out_size`` are dropped."""
+    n = keep.shape[0]
+    dev = keep.device
+    k = keep.to(torch.int32)
+    rank = torch.cumsum(k, 0, dtype=torch.int32) - 1
+    dest = torch.where(keep, rank, out_size).clamp_max(out_size).long()
+    perm = torch.zeros(out_size + 1, dtype=torch.int32, device=dev)
     perm.scatter_(0, dest, torch.arange(n, dtype=torch.int32, device=dev))
-    return perm[: 2 * n], counts, offsets
+    return perm[:out_size], k.sum(dtype=torch.int32).reshape(1)
+
+
+def compact_rows(keep, view_pos, ndc, radius, point_id, out_size: int):
+    """The reference's ``compact_rows`` (splat.py:65-95): the kept rows'
+    payloads packed into ``out_size`` rows, and the (out_size,) valid mask
+    ``arange(out_size) < count``. The rasters below do not call it: K2
+    reads rows through :func:`compact_perm`'s ``perm`` itself."""
+    perm, count = compact_perm(keep, out_size)
+    p = perm.long()
+    valid = torch.arange(out_size, dtype=torch.int32,
+                         device=keep.device) < count
+    return view_pos[p], ndc[p], radius[p], point_id[p], valid
 
 
 RUNG_CHUNK_FRAGS = 1 << 16
@@ -143,6 +204,22 @@ def fragments(view_pos, ndc, radius, point_id, projection, height: int,
     """Expand rows into (rows, k*k) fragments (splat.py:187-259): returns
     (flat pixel index, framebuffer word, valid), the word already
     ``depth_bits << 32 | id`` with -0.0 mapped to +0.0."""
+    frag_x, frag_y, depth, valid = fragment_values(
+        view_pos, ndc, radius, projection, height, width, k, voronoi)
+    fx = torch.where(valid, frag_x, 0.0).to(torch.int64)
+    fy = torch.where(valid, frag_y, 0.0).to(torch.int64)
+    depth = torch.where(depth == 0.0, 0.0, depth)  # -0.0 -> +0.0
+    bits = depth.view(torch.int32).to(torch.int64)
+    word = (bits << 32) | (point_id[:, None].to(torch.int64) & 0xFFFFFFFF)
+    return fy * width + fx, word, valid
+
+
+def fragment_values(view_pos, ndc, radius, projection, height: int,
+                    width: int, k: int, voronoi: bool):
+    """The fragment math of splat.py:197-247 on (rows, k*k): returns the
+    fragments' pixel x and y (f32), their depth (f32, -0.0 kept) and
+    whether each is valid (inside the circle, on screen, depth in
+    [0, 1])."""
     dev = view_pos.device
     px = (ndc[:, 0] * 0.5 + 0.5) * width
     py = (ndc[:, 1] * -0.5 + 0.5) * height
@@ -170,12 +247,7 @@ def fragments(view_pos, ndc, radius, point_id, projection, height: int,
     on_screen = ((frag_x >= 0) & (frag_x < width)
                  & (frag_y >= 0) & (frag_y < height))
     valid = inside & on_screen & (depth >= 0.0) & (depth <= 1.0)
-    fx = torch.where(valid, frag_x, 0.0).to(torch.int64)
-    fy = torch.where(valid, frag_y, 0.0).to(torch.int64)
-    depth = torch.where(depth == 0.0, 0.0, depth)  # -0.0 -> +0.0
-    bits = depth.view(torch.int32).to(torch.int64)
-    word = (bits << 32) | (point_id[:, None].to(torch.int64) & 0xFFFFFFFF)
-    return fy * width + fx, word, valid
+    return frag_x, frag_y, depth, valid
 
 
 def splat_raster_reference(fb, view_pos, ndc, radius, point_id, perm, start,
@@ -363,21 +435,29 @@ def render_bucket_pass(framebuffer: Framebuffer, positions, hier_base, valid,
                        width: int, footprint: int = DEFAULT_FOOTPRINT,
                        voronoi: bool = True, use_occlusion: bool = False,
                        use_pyramid: bool = False, overflow_ks: tuple = (),
-                       sub_ks: tuple = (), cull=None, raster=None):
-    """One bucket's frame chain: the chunked arm of the reference's bucket
-    megakernel (splat.py:656-789). Rasters into ``framebuffer`` in place
-    and returns (framebuffer, counts_vec): [kept total, then each rung's
-    exclusive count in (sub_ks..., footprint, overflow_ks...) order], an
-    (R+1,) i32 device tensor.
+                       sub_ks: tuple = (), out_size: int = 0,
+                       overflow_rows: tuple = (), sub_rows: tuple = (),
+                       chunked: bool = True, cull=None, raster=None):
+    """One bucket's frame chain, the reference's bucket megakernel
+    (splat.py:656-835). Rasters into ``framebuffer`` in place and returns
+    (framebuffer, counts_vec): [kept total, then each rung's exclusive
+    count in (sub_ks..., footprint, overflow_ks...) order], an (R+1,) i32
+    device tensor.
 
     ``thresholds`` holds the rungs' k/2 as an (R,) f32 device tensor. The
     cull reads the running depth (near buckets raster first). One K2
-    launch rasters the bucket: every rung's region of the ranking through
-    its own window, an overflow rung at most its cap of rows, and the rest
-    (its tail) through the footprint window; at footprint 1, every kept row
-    through the 1x1 window (:func:`raster_table`). Nothing here waits for the
-    device. ``cull`` and ``raster`` default to K1 and K2; passing
-    their plain versions runs the same chain as a twin on any device."""
+    launch rasters the bucket. ``chunked`` (the default arm): every
+    rung's region of the ranking through its own window, an overflow rung
+    at most its cap of rows, and the rest (its tail) through the footprint
+    window; at footprint 1, every kept row through the 1x1 window
+    (:func:`raster_table`). Not ``chunked``, the budget arm
+    (splat.py:791-835): each sub and overflow rung draws at most its
+    static row budget (``sub_rows``, ``overflow_rows``), its rows past the
+    budget spill into the footprint raster, which draws the first
+    ``out_size`` rows, in row order, of the footprint rung's rows and the
+    spill (:func:`budget_table`). Nothing here waits for the device.
+    ``cull`` and ``raster`` default to K1 and K2; passing their plain
+    versions runs the same chain as a twin on any device."""
     cull = cull or kernel.cull_classify
     fb = framebuffer.packed
     rungs = tuple(sub_ks) + (footprint,) + tuple(overflow_ks)
@@ -392,12 +472,71 @@ def render_bucket_pass(framebuffer: Framebuffer, positions, hier_base, valid,
         positions, hier_base, valid, view, projection, cam_pos, spacings,
         far_distances, size_by_distance, max_hierarchy, thresholds, width,
         height, depth=depth, coarse=coarse)
-    perm, counts, offsets = compact_classes(rung, len(rungs))
-    raster_rungs(fb, view_pos, ndc, radius, point_id, perm, counts, offsets,
-                 projection, height=height, width=width, rungs=rungs,
-                 footprint=footprint, voronoi=voronoi, raster=raster)
+    if chunked:
+        perm, counts, offsets = compact_classes(rung, len(rungs))
+        raster_rungs(fb, view_pos, ndc, radius, point_id, perm, counts,
+                     offsets, projection, height=height, width=width,
+                     rungs=rungs, footprint=footprint, voronoi=voronoi,
+                     raster=raster)
+    else:
+        if (len(sub_rows), len(overflow_rows)) != (len(sub_ks),
+                                                   len(overflow_ks)):
+            raise ValueError("one row budget per sub and overflow rung")
+        budgets = tuple(sub_rows) + (None,) + tuple(overflow_rows)
+        segments, perm, all_counts, all_offsets, counts = budget_table(
+            rung, rungs, len(sub_ks), budgets, out_size)
+        raster_segments(fb, view_pos, ndc, radius, point_id, perm,
+                        all_offsets, all_counts, projection, height, width,
+                        segments, voronoi, raster)
     counts_vec = torch.cat([keep.sum().reshape(1).to(torch.int32), counts])
     return framebuffer, counts_vec
+
+
+def budget_table(rung, rungs: tuple, fp_i: int, budgets: tuple,
+                 out_size: int):
+    """The budget arm's raster table (splat.py:791-835) for a bucket ranked
+    into ``rungs`` (``rung``: K1's exclusive rung, -1 where not kept):
+    returns (segments, perm, counts, offsets, rung_counts). Rung j (not the
+    footprint rung ``fp_i``) draws its first ``budgets[j]`` rows through
+    its own window; its rows of rank >= budgets[j] spill into the footprint
+    mask, whose rows, in row order, :func:`compact_perm` packs into
+    ``out_size`` slots after the rungs' 2N ranking (one more entry of
+    ``counts`` and ``offsets``), drawn through the footprint window. The
+    spill is a ranking of its own, not K2's capped tail. ``rung_counts``
+    are the rungs' (R,) exclusive counts."""
+    n = rung.shape[0]
+    dev = rung.device
+    n_rungs = len(rungs)
+    dest, rung_counts, offsets = rank_classes(rung, n_rungs)
+    cls = torch.where(rung >= 0, rung, n_rungs).long()
+    # a row's rank in its rung, and the rung's budget (none: the bucket)
+    limit = torch.tensor([n if b is None else b for b in budgets] + [n],
+                         dtype=torch.int64, device=dev)
+    rank = dest - torch.cat([offsets, offsets[:1]]).long()[cls]
+    fp_mask = (cls == fp_i) | ((cls < n_rungs) & (rank >= limit[cls]))
+    fp_perm, fp_count = compact_perm(fp_mask, out_size)
+    perm = torch.cat([class_perm(dest), fp_perm])
+    counts = torch.cat([rung_counts, fp_count])
+    offsets_all = torch.cat([offsets, torch.full(
+        (1,), 2 * n, dtype=torch.int32, device=dev)])
+    segments = (Segment(rungs[fp_i], n_rungs, out_size, False),) + tuple(
+        Segment(k, j, budgets[j], False)
+        for j, k in enumerate(rungs) if j != fp_i)
+    return segments, perm, counts, offsets_all, rung_counts
+
+
+def raster_segments(fb, view_pos, ndc, radius, point_id, perm, offsets,
+                    counts, projection, height: int, width: int,
+                    segments: tuple, voronoi: bool, raster=None):
+    """K2 over ``segments`` (one launch on the card), or with ``raster``
+    that function once a segment: the plain twin's loop."""
+    if raster is None:
+        return splat_raster_segments(
+            fb, view_pos, ndc, radius, point_id, perm, offsets, counts,
+            projection, height, width, segments, voronoi)
+    return splat_raster_segments_reference(
+        fb, view_pos, ndc, radius, point_id, perm, offsets, counts,
+        projection, height, width, segments, voronoi, raster=raster)
 
 
 def raster_rungs(fb, view_pos, ndc, radius, point_id, perm, counts, offsets,
@@ -409,13 +548,97 @@ def raster_rungs(fb, view_pos, ndc, radius, point_id, perm, counts, offsets,
     with device-side start and count, the plain twin's loop."""
     segments, counts, offsets = raster_table(rungs, footprint,
                                              view_pos.shape[0], counts, offsets)
-    if raster is None:
-        return splat_raster_segments(
-            fb, view_pos, ndc, radius, point_id, perm, offsets, counts,
-            projection, height, width, segments, voronoi)
-    return splat_raster_segments_reference(
-        fb, view_pos, ndc, radius, point_id, perm, offsets, counts,
-        projection, height, width, segments, voronoi, raster=raster)
+    return raster_segments(fb, view_pos, ndc, radius, point_id, perm,
+                           offsets, counts, projection, height, width,
+                           segments, voronoi, raster)
+
+
+# --- the multi-dispatch arm's rasters (splat.py:302-369) -------------------
+#
+# Each is one K2 call over one segment whose cap is the budget: the rows
+# past it are dropped, as the reference's mode="drop" compaction drops them.
+
+
+def raster_compacted(framebuffer: Framebuffer, view_pos, ndc, radius,
+                     point_id, keep, projection, height: int, width: int,
+                     footprint: int, voronoi: bool, out_size: int):
+    """The reference's ``compact_rows`` then ``rasterize_splats``
+    (renderer.py:671-684): the first ``out_size`` kept rows, in row order,
+    through a ``footprint`` window; the rest are dropped. In place."""
+    perm, count = compact_perm(keep, out_size)
+    zero = torch.zeros(1, dtype=torch.int32, device=keep.device)
+    splat_raster_segments(
+        framebuffer.packed, view_pos, ndc, radius, point_id, perm, zero,
+        count, projection, height, width,
+        (Segment(footprint, 0, out_size, False),), voronoi)
+    return framebuffer
+
+
+def rasterize_splats(framebuffer: Framebuffer, view_pos, ndc, radius,
+                     point_id, valid, projection, height: int = 720,
+                     width: int = 1280, footprint: int = DEFAULT_FOOTPRINT,
+                     voronoi: bool = True):
+    """The reference's ``rasterize_splats`` (splat.py:302-319): every
+    ``valid`` row through a ``footprint`` window, into ``framebuffer`` in
+    place. K2 reads rows through a permutation, so the valid rows are
+    compacted first, none dropped."""
+    return raster_compacted(framebuffer, view_pos, ndc, radius, point_id,
+                            valid, projection, height, width, footprint,
+                            voronoi, valid.shape[0])
+
+
+def rasterize_class_slice(framebuffer: Framebuffer, view_pos, ndc, radius,
+                          point_id, perm, start, count, projection,
+                          height: int, width: int, footprint: int,
+                          voronoi: bool, out_size: int):
+    """The reference's ``rasterize_class_slice`` (splat.py:326-365): rows
+    ``perm[start + i]`` for i < min(count, out_size) (one class of
+    :func:`compact_classes`, ``start`` and ``count`` one-element device
+    tensors) through a ``footprint`` window, in place; the class's rows
+    past ``out_size`` are dropped."""
+    splat_raster_segments(
+        framebuffer.packed, view_pos, ndc, radius, point_id, perm,
+        start.reshape(1), count.reshape(1), projection, height, width,
+        (Segment(footprint, 0, out_size, False),), voronoi)
+    return framebuffer
+
+
+# --- frame fusion (splat.py:847-908) ----------------------------------------
+
+
+def render_frame_pass(bucket_arrays, view, projection, cam_pos, spacings,
+                      far_distances, size_by_distance: bool,
+                      max_hierarchy: int, colors, thresholds, *, height: int,
+                      width: int, footprint: int, voronoi: bool,
+                      use_occlusion: bool, bucket_static: tuple,
+                      with_depth: bool, chunked: bool = True,
+                      use_pyramid: bool = False):
+    """A whole frame, the reference's ``render_frame_pass``: every bucket's
+    chain (:func:`render_bucket_pass`, near to far, each cull reading the
+    running depth), then the packed resolve. ``bucket_arrays`` holds
+    (positions, hier_base, valid, point_id) a bucket, ``bucket_static``
+    (out_size, overflow_rows, overflow_ks, sub_rows, sub_ks) a bucket, and
+    ``thresholds`` the rungs' k/2. On the card it launches what the
+    per-bucket path launches and nothing in it waits for the host; it
+    queues no CUDA graph. Returns (the packed frame of :func:`pack_frame`
+    with every bucket's counts vector in its tail, the framebuffer)."""
+    framebuffer = make_framebuffer(height, width, device=colors.device)
+    vecs = []
+    for (pos, hier_base, valid, ids), (out_size, orows, oks, srows, sks) \
+            in zip(bucket_arrays, bucket_static):
+        framebuffer, counts_vec = render_bucket_pass(
+            framebuffer, pos, hier_base, valid, ids, view, projection,
+            cam_pos, spacings, far_distances, size_by_distance,
+            max_hierarchy, thresholds, height=height, width=width,
+            footprint=footprint, voronoi=voronoi,
+            use_occlusion=use_occlusion, use_pyramid=use_pyramid,
+            overflow_ks=oks, sub_ks=sks, out_size=out_size,
+            overflow_rows=orows, sub_rows=srows, chunked=chunked)
+        vecs.append(counts_vec)
+    counts = (torch.cat(vecs) if vecs
+              else torch.zeros(1, dtype=torch.int32, device=colors.device))
+    return (pack_frame(framebuffer, colors, counts, height, width,
+                       with_depth), framebuffer)
 
 
 def resolve_framebuffer(framebuffer: Framebuffer, colors, height: int,
@@ -449,3 +672,273 @@ def pack_frame(framebuffer: Framebuffer, colors, counts, height: int,
     if with_depth:
         parts.append(depth.reshape(-1).view(torch.uint8))
     return torch.cat(parts)
+
+
+# --- the sorted raster (splat.py:372-386, 505-577) -------------------------
+#
+# A bucket's classes emit their fragments into one list (K3), ``sort4``
+# orders it by (pixel, depth bits, id, arrival), and the first row of each
+# pixel run merges into the framebuffer (K4). The reference's in-chunk
+# partition and block squeeze (``_partition_chunks``,
+# ``compact_winner_rows``) exist to keep the TPU's scatters narrow; K4
+# reads each row once and writes only the winners, so the port has no
+# counterpart of them.
+
+MAX_FRAGMENT_CLASSES = 32  # csrc/fragments.cu kMaxClasses
+fragment_launches = 0  # K3
+merge_launches = 0  # K4
+
+
+class FragmentClass(NamedTuple):
+    """One class of a bucket's sorted raster: the rows of class ``cls`` of
+    a :func:`compact_classes` ranking, ``rows`` slots of them (the
+    reference's ``out_size``: the class's rows past it are dropped, slots
+    past its count are invalid), each through a k x k window."""
+
+    k: int
+    cls: int
+    rows: int
+
+
+def emit_fragments(keep, view_pos, ndc, radius, point_id, projection,
+                   height: int, width: int, footprint: int, voronoi: bool,
+                   out_size: int):
+    """The reference's ``emit_fragments`` (splat.py:372-386): the ``keep``
+    rows compacted to ``out_size`` (:func:`compact_rows`) and expanded to
+    (out_size * k * k,) fragments, row-major: the flat pixel index
+    (``_NO_ID`` where the fragment is invalid), the f32 depth (-0.0 kept)
+    and the point id. Plain torch: the tests hold it against the
+    reference; the frame path runs :func:`emit_fragment_columns`."""
+    rows = compact_rows(keep, view_pos, ndc, radius, point_id, out_size)
+    return _row_fragments(*rows, projection, height, width, footprint,
+                          voronoi)
+
+
+def _row_fragments(view_pos, ndc, radius, point_id, row_ok, projection,
+                   height: int, width: int, k: int, voronoi: bool):
+    """(pixel or ``_NO_ID``, depth, id) of every fragment of the given
+    rows, row-major; a row with ``row_ok`` False has no valid fragment."""
+    fx, fy, depth, valid = fragment_values(view_pos, ndc, radius, projection,
+                                           height, width, k, voronoi)
+    valid = valid & row_ok[:, None]
+    pix = (torch.where(valid, fy, 0.0).to(torch.int32) * width
+           + torch.where(valid, fx, 0.0).to(torch.int32))
+    pix = torch.where(valid, pix, int(_NO_ID))
+    ids = point_id[:, None].expand(depth.shape)
+    return pix.reshape(-1), depth.reshape(-1), ids.reshape(-1)
+
+
+def fragment_columns(pix, depth, ids):
+    """The sort's four columns for a fragment list (splat.py:530-536,
+    574): the pixel, the depth's f32 bits with -0.0 mapped to +0.0 and
+    ``_NO_ID`` where the pixel is, the id, and the arrival index."""
+    depth = torch.where(depth == 0.0, 0.0, depth)
+    bits = torch.where(pix == int(_NO_ID), int(_NO_ID),
+                       depth.view(torch.int32))
+    arrival = torch.arange(pix.shape[0], dtype=torch.int32,
+                           device=pix.device)
+    return (pix.to(torch.int32).contiguous(), bits.contiguous(),
+            ids.to(torch.int32).contiguous(), arrival)
+
+
+def fragment_total(classes: tuple) -> int:
+    """Fragment slots of ``classes``: rows * k * k summed."""
+    return sum(c.rows * c.k * c.k for c in classes)
+
+
+def emit_fragment_columns_reference(view_pos, ndc, radius, point_id, perm,
+                                    offsets, counts, projection, height: int,
+                                    width: int, classes: tuple,
+                                    voronoi: bool, length: int):
+    """Plain version of K3: the sort's four (length,) i32 columns for a
+    bucket's :class:`FragmentClass` list, class after class, each as
+    :func:`emit_fragments` lays out its class (slot i of class c holds
+    ``perm[offsets[c.cls] + i]`` while i < counts[c.cls], else row 0 and
+    no valid fragment), through :func:`fragment_columns`; the slots past
+    the classes' fragments are padding rows (``_NO_ID``, ``_NO_ID``, 0)."""
+    dev = view_pos.device
+    parts = []
+    for c in classes:
+        i = torch.arange(c.rows, dtype=torch.int64, device=dev)
+        row_ok = i < counts[c.cls].long()
+        at = (offsets[c.cls].long() + i).clamp_max(perm.shape[0] - 1)
+        rows = torch.where(row_ok, perm[at].long(), 0)
+        parts.append(_row_fragments(
+            view_pos[rows], ndc[rows], radius[rows], point_id[rows], row_ok,
+            projection, height, width, c.k, voronoi))
+    total = fragment_total(classes)
+    if length < total:
+        raise ValueError(f"{total} fragments do not fit {length} slots")
+    pad = length - total
+    pix = torch.cat([p for p, _, _ in parts] + [torch.full(
+        (pad,), int(_NO_ID), dtype=torch.int32, device=dev)])
+    depth = torch.cat([d for _, d, _ in parts] + [torch.zeros(
+        pad, dtype=torch.float32, device=dev)])
+    ids = torch.cat([i for _, _, i in parts] + [torch.zeros(
+        pad, dtype=torch.int32, device=dev)])
+    return fragment_columns(pix, depth, ids)
+
+
+def emit_fragment_columns(view_pos, ndc, radius, point_id, perm, offsets,
+                          counts, projection, height: int, width: int,
+                          classes: tuple, voronoi: bool, length: int):
+    """K3: :func:`emit_fragment_columns_reference`'s four columns, as one
+    launch of ``csrc/fragments.cu`` on a CUDA tensor (no fallback), with
+    K2's fragment arithmetic; on a CPU tensor the plain version.
+    ``length`` is the columns' (padded) length."""
+    global fragment_launches
+    dev = view_pos.device
+    if dev.type == "cpu":
+        return emit_fragment_columns_reference(
+            view_pos, ndc, radius, point_id, perm, offsets, counts,
+            projection, height, width, classes, voronoi, length)
+    if dev.type != "cuda":
+        raise ValueError(f"emit_fragments runs on cuda or cpu, not {dev}")
+    n = view_pos.shape[0]
+    expect = ((view_pos, torch.float32, (n, 4)),
+              (ndc, torch.float32, (n, 3)), (radius, torch.float32, (n,)),
+              (point_id, torch.int32, (n,)),
+              (perm, torch.int32, (perm.shape[0],)),
+              (offsets, torch.int32, (counts.shape[0],)),
+              (counts, torch.int32, (counts.shape[0],)),
+              (projection, torch.float32, (4, 4)))
+    _check_tensors("emit_fragments", expect, dev)
+    if not 1 <= len(classes) <= MAX_FRAGMENT_CLASSES:
+        raise ValueError(f"1 to {MAX_FRAGMENT_CLASSES} classes a launch, got "
+                         f"{len(classes)}")
+    for c in classes:
+        if (not 1 <= c.k <= MAX_WINDOW or c.rows < 1
+                or not 0 <= c.cls < counts.shape[0]):
+            raise ValueError(f"the kernel takes windows of 1 to {MAX_WINDOW}, "
+                             f"rows >= 1 and classes below "
+                             f"{counts.shape[0]}; got {c}")
+    total = fragment_total(classes)
+    if length < total or length > 1 << 31:
+        raise ValueError(f"{total} fragments in {length} slots (at most 2^31)")
+    from ..ops.runtime import load_kernels
+
+    lib = load_kernels()
+    cols = torch.empty((4, length), dtype=torch.int32, device=dev)
+    ks, cls, rows = (
+        (ctypes.c_int * len(classes))(*(int(v) for v in col))
+        for col in zip(*classes))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pc_emit_fragments(
+            *(cols[i].data_ptr() for i in range(4)), view_pos.data_ptr(),
+            ndc.data_ptr(), radius.data_ptr(), point_id.data_ptr(),
+            perm.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
+            projection.data_ptr(), width, height, int(bool(voronoi)),
+            len(classes), ks, cls, rows, length, stream)
+    if rc != 0:
+        raise RuntimeError(f"pc_emit_fragments launch failed: cudaError {rc}")
+    fragment_launches += 1
+    return tuple(cols)
+
+
+def _check_tensors(name: str, expect, dev) -> None:
+    for t, dtype, shape in expect:
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} takes {dtype} {shape} contiguous tensors on {dev}; "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _sort4_frags(pix, depth_bits, ids, arrival=None):
+    """The fragment sort (splat.py:567-575): ``sort4`` of (pixel, depth
+    bits, id, arrival), the arrival index made here unless given. On the
+    card a ``sort4`` launch (a power-of-two length in [2^10, 2^30], or it
+    raises); on the CPU its plain version."""
+    from ..ops.sort import sort4
+
+    if arrival is None:
+        arrival = torch.arange(pix.shape[0], dtype=torch.int32,
+                               device=pix.device)
+    return sort4(pix, depth_bits, ids, arrival)
+
+
+def sorted_merge_reference(fb, pix, depth_bits, ids):
+    """Plain version of K4: over sorted columns, row i wins where
+    ``pix[i] != _NO_ID``, ``pix[i]`` lies on the plane and it starts its
+    pixel's run; each winner's word ``depth_bits << 32 | id`` (both as 32
+    unsigned bits) merges into the (H*W,) int64 plane ``fb`` by a minimum
+    of the words as unsigned 64-bit values, K4's, in place. (The sign flip
+    makes torch's signed minimum an unsigned one; words of depths in
+    [0, 1] are non-negative either way.)"""
+    first = torch.ones_like(pix, dtype=torch.bool)
+    first[1:] = pix[1:] != pix[:-1]
+    win = first & (pix != int(_NO_ID)) & (pix >= 0) & (pix < fb.shape[0])
+    word = ((depth_bits.to(torch.int64) & 0xFFFFFFFF) << 32) | (
+        ids.to(torch.int64) & 0xFFFFFFFF)
+    flip = int(np.iinfo(np.int64).min)
+    fb.bitwise_xor_(flip)
+    fb.scatter_reduce_(0, pix[win].long(), word[win] ^ flip, "amin")
+    return fb.bitwise_xor_(flip)
+
+
+def sorted_merge(fb, pix, depth_bits, ids):
+    """K4: :func:`sorted_merge_reference`'s merge, one launch of
+    ``csrc/sorted_merge.cu`` on a CUDA tensor (no fallback); on a CPU
+    tensor the plain version. One winner falls on a pixel in a merge, so
+    the kernel's minimum needs no atomic."""
+    global merge_launches
+    dev = fb.device
+    if dev.type == "cpu":
+        return sorted_merge_reference(fb, pix, depth_bits, ids)
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_merge runs on cuda or cpu, not {dev}")
+    n = pix.shape[0]
+    _check_tensors("sorted_merge", (
+        (fb, torch.int64, (fb.shape[0],)), (pix, torch.int32, (n,)),
+        (depth_bits, torch.int32, (n,)), (ids, torch.int32, (n,))), dev)
+    from ..ops.runtime import load_kernels
+
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pc_sorted_merge(fb.data_ptr(), fb.shape[0], pix.data_ptr(),
+                                 depth_bits.data_ptr(), ids.data_ptr(), n,
+                                 stream)
+    if rc != 0:
+        raise RuntimeError(f"pc_sorted_merge launch failed: cudaError {rc}")
+    merge_launches += 1
+    return fb
+
+
+def sorted_raster_merge(framebuffer: Framebuffer, pix, depth, ids):
+    """The reference's ``sorted_raster_merge`` (splat.py:505-565): one
+    depth-tested merge of a fragment list into ``framebuffer``, in place:
+    the columns of :func:`fragment_columns`, :func:`_sort4_frags`, then
+    :func:`sorted_merge` (K4)."""
+    pix_s, bits_s, ids_s, _ = _sort4_frags(*fragment_columns(pix, depth,
+                                                             ids))
+    sorted_merge(framebuffer.packed, pix_s, bits_s, ids_s)
+    return framebuffer
+
+
+def sorted_raster_merge_reference(framebuffer: Framebuffer, pix, depth, ids):
+    """The reference's ``sorted_raster_merge`` step by step, as plain torch
+    on a fresh plane (the tests hold K4's one-pass merge to it): -0.0 to
+    +0.0, the depth bits, ``_NO_ID`` for invalid rows, the sort, the first
+    row of each pixel run, a stable compaction of the winners (for the
+    reference's ``compact_winner_rows``), then a scatter-min of depth and,
+    among the pixels' minimum depths, of ids."""
+    from ..ops.sort import sort4_reference
+
+    pix_c, bits_c, ids_c, arrival = fragment_columns(pix, depth, ids)
+    pix_s, bits_s, ids_s, _ = sort4_reference(pix_c, bits_c, ids_c, arrival)
+    first = torch.ones_like(pix_s, dtype=torch.bool)
+    first[1:] = pix_s[1:] != pix_s[:-1]
+    win = torch.nonzero(first & (pix_s != int(_NO_ID))).reshape(-1)
+    target = pix_s[win].long()
+    depth_w = bits_s[win].view(torch.float32)
+    old_depth = framebuffer.depth
+    new_depth = old_depth.scatter_reduce(0, target, depth_w, "amin")
+    ids0 = torch.where(new_depth < old_depth, int(_NO_ID),
+                       framebuffer.point_id)
+    ok = depth_w == new_depth[target]
+    new_ids = ids0.scatter_reduce(0, target[ok], ids_s[win][ok], "amin")
+    packed = ((new_depth.view(torch.int32).to(torch.int64) << 32)
+              | (new_ids.to(torch.int64) & 0xFFFFFFFF))
+    return Framebuffer(packed)

@@ -25,8 +25,8 @@
   the voronoi depth; measured on both test scenes: 0 of 19,200 rgb pixels
   differ, and the depth of 2,111 (cube) and 4,696 (corridor) pixels
   differs by at most 1.2e-7.
-- The reference's image identities hold exactly in the port, and the
-  render arms the port does not have raise.
+- The reference's image identities hold exactly in the port. (Its other
+  render arms: tests/test_torch_arms.py, tests/test_torch_fusion_sorted.py.)
 - Footprint 1: every bucket of the port's frame equals the NumPy oracle
   at k = 1 over the kept rows, and the frame meets the JAX renderer's
   (first and steady frames) with the same landed counts; a footprint of
@@ -1128,22 +1128,6 @@ def test_cap_tail_spills_through_footprint(monkeypatch):
     assert np.array_equal(vec.numpy(), np.asarray(ref_vec))
     same = fb.point_id.numpy() == np.asarray(ref_fb.point_id)
     assert same.mean() >= 0.999
-
-
-@pytest.mark.parametrize("unported", [
-    dict(megakernel=False), dict(chunked_raster=False),
-    dict(compact_raster=False), dict(raster_mode="sorted"),
-    dict(frame_fusion=True), dict(footprint=1, frame_fusion=True),
-])
-def test_unported_render_arms_raise(unported):
-    """Each arm the port lacks raises, footprint 1 (ported) or not."""
-    from point_cloud_tpu_torch.render.streaming import CellStreamer
-
-    meta = TMetadata()
-    renderer = TRenderer(meta, TSettings(width=32, height=24, **unported),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        renderer.render(CellStreamer(meta), tcamera.Camera())
 
 
 def test_footprint_above_the_kernels_window_raises():
