@@ -57,6 +57,28 @@ use. Imports no JAX. Phases, one JSON line each:
    after the same requests. Then ``WindowLoop`` runs 8 frames on the card
    with a stub back end (the machine has no display), a movement key and a
    hotkey pressed: every frame must blit.
+7. arms: every other render arm (``ARMS``) on the same store at
+   1280x720, 4 frames each from zero launch counts; steady frames equal
+   within their groups, first frames equal to the CPU renderer's, and
+   every bucket the sorted arms sort held through K3, ``sort4`` and K4
+   against their plain versions.
+8. mesh, the multi-device path, on four logical shards of the one card
+   (``make_mesh(devices=[cuda:0] * 4)``): (a) phase 4's PLY through
+   ``MeshConverter`` from zero ``sort4`` counts, the first call at every
+   sorted length held against ``sort4_reference``, the store
+   byte-identical to phase 4's ``--native`` one; ``--mesh 1`` through the
+   CLI, the same; a forced-spill pass (capacity 1, 2^18 points) against
+   the host ``Converter``; the owner-sharded pass timed alone at 2^20
+   rows and one cascade level profiled. (b) The store at 1280x720 from
+   phase 7's pose through ``MeshPointRenderer`` from zero K1 and K2
+   counts (one launch of each a shard and bucket): bit-equal to the
+   single-device plain raster arm, to the same mesh on the CPU and to
+   1- and 3-shard meshes; the default arm's capped rungs reported.
+   (c) The cloud as four PLY files, converted by two ``--multihost
+   --device-native`` CLI workers on a gloo process group at a localhost
+   coordinator: rank 0's merged store holds the point multiset of one
+   ``--device-native`` conversion of the four files. Four shards on one
+   card run one after another: no number here is a scaling measurement.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels' JSON
 line, and the last line ``{"ok": true, "device": {...}}``. In the
@@ -318,11 +340,18 @@ def phase_pass(torch, np, dedup, get_pipeline) -> dict:
     return result
 
 
-def run_cli(flag: str, src: Path, out: Path) -> dict:
-    cmd = [sys.executable, "-m", "point_cloud_tpu_torch.convert.cli", flag,
-           "--batch-size", str(BATCH), "--profile", "-o", str(out),
-           "-f", str(src)]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+def cli_command(flags, src, out: Path) -> list:
+    """The port's CLI converting ``src`` (one path or several) into
+    ``out`` at batch BATCH with ``--profile``."""
+    srcs = [src] if isinstance(src, Path) else list(src)
+    return [sys.executable, "-m", "point_cloud_tpu_torch.convert.cli",
+            *flags.split(), "--batch-size", str(BATCH), "--profile",
+            "-o", str(out), "-f", *map(str, srcs)]
+
+
+def run_cli(flag: str, src, out: Path) -> dict:
+    proc = subprocess.run(cli_command(flag, src, out), cwd=ROOT,
+                          capture_output=True, text=True,
                           timeout=CLI_TIMEOUT_S)
     if proc.returncode != 0 or "Failed converting" in proc.stderr:
         raise RuntimeError(f"{flag} conversion failed:\n{proc.stderr[-4000:]}")
@@ -332,6 +361,22 @@ def run_cli(flag: str, src: Path, out: Path) -> dict:
 def store_files(root: Path) -> dict:
     return {str(p.relative_to(root)): p for p in sorted(root.rglob("*"))
             if p.is_file()}
+
+
+def same_store(a: Path, b: Path, what: str) -> int:
+    """Fails unless the stores at ``a`` and ``b`` hold the same files with
+    the same bytes; returns the file count."""
+    import filecmp
+
+    fa, fb = store_files(a), store_files(b)
+    if not fa or set(fa) != set(fb):
+        raise AssertionError(f"{what}: store file sets differ "
+                             f"({len(fa)} / {len(fb)} files)")
+    bad = [k for k in fa if not filecmp.cmp(fa[k], fb[k], shallow=False)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} store files differ: "
+                             f"{bad[:5]}")
+    return len(fa)
 
 
 def sorted_lengths(run: dict, flag: str, checked_lengths) -> dict:
@@ -348,9 +393,8 @@ def sorted_lengths(run: dict, flag: str, checked_lengths) -> dict:
 
 
 def phase_slice(np, checked_lengths, tmp: Path) -> dict:
-    """Phase 4, in ``tmp``; the ``--device-native`` store stays there."""
-    import filecmp
-
+    """Phase 4, in ``tmp``; the PLY and the three stores stay there (phase
+    8 converts the PLY again and compares with the ``--native`` store)."""
     from point_cloud_tpu_torch.core.point import PointBatch
     from point_cloud_tpu_torch.io.ply import write_ply
     from point_cloud_tpu_torch.models.synth import synth_cloud
@@ -363,22 +407,13 @@ def phase_slice(np, checked_lengths, tmp: Path) -> dict:
     ))
     runs = {flag: run_cli(flag, src, tmp / flag.strip("-"))
             for flag in ("--device", "--device-native", "--native")}
-    src.unlink()
-    host = store_files(tmp / "native")
     for flag in ("--device", "--device-native"):
-        port = store_files(tmp / flag.strip("-"))
-        if not host or set(port) != set(host):
-            raise AssertionError(f"{flag}: store file sets differ")
-        bad = [k for k in host
-               if not filecmp.cmp(port[k], host[k], shallow=False)]
-        if bad:
-            raise AssertionError(
-                f"{flag}: {len(bad)} store files differ: {bad[:5]}")
+        files = same_store(tmp / "native", tmp / flag.strip("-"), flag)
     device, native_device = runs["--device"], runs["--device-native"]
     stages = device["stages"]
     result = {
         "phase": "slice", "ok": True, "points": CLOUD_POINTS,
-        "batch_size": BATCH, "store_files": len(host),
+        "batch_size": BATCH, "store_files": files,
         "byte_identical": True,
         "sort4_launches": native_device["launches"]["sort4"],
         "sort4_launches_by_n": sorted_lengths(
@@ -1687,6 +1722,408 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
     }
 
 
+# --- phase 8: the multi-device path -----------------------------------------
+
+MESH_SHARDS = 4  # logical shards of the one card
+MESH_PASS_N = 1 << 20  # the owner-sharded pass timed alone
+SPILL_POINTS = 1 << 18
+MESH_FRAMES = 4
+MULTIHOST_FILES = 4
+MULTIHOST_WORKERS = 2
+
+
+class SortCapture:
+    """Wraps ``sort4`` where the owner-sharded pass calls it (stage A's
+    hash sort in ``ops.dedup``, the routing and stage-B sorts in
+    ``parallel.owner_cascade``) while installed: the first call at each
+    length keeps its input columns and outputs, held against the plain
+    version after the run. It counts nothing: ``sort4`` counts its own
+    launches."""
+
+    def __init__(self, modules):
+        self.modules = modules
+        self.real = [m.sort4 for m in modules]
+        self.calls = {}
+
+    def __enter__(self):
+        for m, real in zip(self.modules, self.real):
+            m.sort4 = self._wrap(real)
+        return self
+
+    def _wrap(self, real):
+        def wrap(*cols):
+            out = real(*cols)
+            n = cols[0].shape[0]
+            if n not in self.calls:
+                self.calls[n] = ([c.clone() for c in cols],
+                                 [o.clone() for o in out])
+            return out
+
+        return wrap
+
+    def __exit__(self, *exc):
+        for m, real in zip(self.modules, self.real):
+            m.sort4 = real
+
+    def check(self, sort) -> dict:
+        """{length: max abs error} of every captured call against
+        ``sort4_reference``; raises on any difference."""
+        errs = {}
+        for n, (cols, out) in sorted(self.calls.items()):
+            errs[n] = max_abs_err(out, sort.sort4_reference(*cols))
+            if errs[n]:
+                raise AssertionError(f"sort4 on the mesh path at n={n} "
+                                     "differs from its plain version")
+        return errs
+
+
+def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
+    """Phase 8a: the phase-4 PLY through MeshConverter on a four-shard mesh
+    of the one card, from zero launch counts (every sort4 length of the
+    run held against the plain version), the store byte-identical to
+    phase 4's ``--native`` one; ``--mesh 1`` through the CLI; a
+    forced-spill pass against the host Converter; the owner-sharded pass
+    timed alone at 2^20 rows and one profiled cascade level."""
+    from point_cloud_tpu_torch.convert.converter import (
+        Converter, convert_from_paths,
+    )
+    from point_cloud_tpu_torch.core.metadata import Metadata, MetadataConfig
+    from point_cloud_tpu_torch.core.point import PointBatch
+    from point_cloud_tpu_torch.models.synth import synth_cloud
+    from point_cloud_tpu_torch.ops import dedup, sort
+    from point_cloud_tpu_torch.parallel import owner_cascade
+    from point_cloud_tpu_torch.parallel.dedup import shard_rows, shard_slices
+    from point_cloud_tpu_torch.parallel.mesh import make_mesh
+    from point_cloud_tpu_torch.parallel.mesh_converter import MeshConverter
+    from point_cloud_tpu_torch.utils.tracing import StageTimer
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[torch.device("cuda:0")] * MESH_SHARDS)
+    made = []
+
+    def factory(metadata, working_directory, cache_size=None):
+        conv = MeshConverter(metadata, working_directory,
+                             cache_size=cache_size, mesh=mesh)
+        made.append(conv)
+        return conv
+
+    # the main path's run: every count starts at 0 here
+    sort.launches = 0
+    sort.launches_by_n.clear()
+    capture = SortCapture((dedup, owner_cascade))
+    with capture, StageTimer() as timer:
+        t0 = time.perf_counter()
+        convert_from_paths([tmp / "cloud.ply"], tmp / "mesh4",
+                           batch_size=BATCH, converter_factory=factory)
+        mesh_s = time.perf_counter() - t0
+    launches, by_n = sort.launches, dict(sort.launches_by_n)
+    if launches <= 0:
+        raise AssertionError("the mesh conversion launched no sort4")
+    files = same_store(tmp / "native", tmp / "mesh4", "4-shard mesh")
+    sort_err = capture.check(sort)
+    if set(by_n) != set(sort_err):
+        raise AssertionError(f"mesh sort lengths {sorted(by_n)} but checked "
+                             f"{sorted(sort_err)}")
+    sort_checked.update(by_n)
+    sideband = {"sideband_spilled": made[0].sideband_spilled,
+                "sideband_suspect": made[0].sideband_suspect}
+    stages = timer.report()
+
+    cli = run_cli("--mesh 1", tmp / "cloud.ply", tmp / "mesh1")
+    same_store(tmp / "native", tmp / "mesh1", "--mesh 1")
+    cli_by_n = sorted_lengths(cli, "--mesh 1", sort_checked)
+
+    rng = np.random.default_rng(5)
+    spill = PointBatch(synth_cloud(SPILL_POINTS, seed=1),
+                       rng.integers(0, 256, (SPILL_POINTS, 4), np.uint8))
+    t0 = time.perf_counter()
+    with Converter(Metadata(), tmp / "spill-host") as host:
+        host.add_points_batch(spill)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with MeshConverter(Metadata(), tmp / "spill-mesh", mesh=mesh,
+                       capacity=1) as spilled:
+        spilled.add_points_batch(spill)
+    spill_s = time.perf_counter() - t0
+    same_store(tmp / "spill-host", tmp / "spill-mesh", "forced spill")
+    if spilled.sideband_spilled <= 0:
+        raise AssertionError("capacity=1 spilled nothing")
+
+    # the pass alone at 2^20 rows: on tensors already on the card, and
+    # through the host wrapper (upload, four shards, readback)
+    config = MetadataConfig()
+    cell_size = config.cell_size(0)
+    sub_size = config.sub_cell_size(cell_size)
+    pos = synth_cloud(MESH_PASS_N, seed=2)
+    owner = owner_cascade.OwnerShardedPass(mesh)
+    n_pad = shard_rows(mesh, MESH_PASS_N)
+    capacity = owner._capacity_for(n_pad // MESH_SHARDS)
+    stage_b = dedup.pad_to_bucket(MESH_SHARDS * capacity, minimum=1024)
+    pos_sh = shard_slices(mesh, pos)
+    valid_sh = shard_slices(mesh, np.ones(MESH_PASS_N, bool))
+    radius = np.float32(sub_size) / np.float32(2.0)
+
+    def device_pass():
+        return owner_cascade.owner_pass(
+            mesh, pos_sh, valid_sh, np.float32(cell_size), radius,
+            capacity=capacity, stage_b_pad=stage_b)
+
+    pass_ms = cuda_ms(device_pass)
+    host_pass_ms = cuda_ms(lambda: owner(pos, cell_size, sub_size), reps=5)
+    pass_busy = busy_share(torch, device_pass)
+    # one cascade level (a fresh store's level 0 at batch 2^18) twice:
+    # under torch.profiler, and under cProfile for the host's functions
+    batch = PointBatch(synth_cloud(BATCH, seed=3),
+                       rng.integers(0, 256, (BATCH, 4), np.uint8))
+    levels = [MeshConverter(Metadata(), tmp / f"level{i}", mesh=mesh)
+              for i in range(2)]
+    level_busy = busy_share(torch, lambda: levels[0]._cascade_level(
+        batch.positions, batch.colors, 0))
+    level_host = host_profile(lambda: levels[1]._cascade_level(
+        batch.positions, batch.colors, 0))
+    for level in levels:
+        level.close()
+    result = {
+        "phase": "mesh_convert", "ok": True, "shards": MESH_SHARDS,
+        "devices": [str(d) for d in mesh.devices], "points": CLOUD_POINTS,
+        "batch_size": BATCH, "store_files": files, "byte_identical": True,
+        "mesh_s": mesh_s, "mesh_mpts_s": CLOUD_POINTS / mesh_s / 1e6,
+        "sort4_launches": launches, "sort4_launches_by_n": by_n,
+        "sort4_max_abs_err_by_n": sort_err,
+        **sideband,
+        "stages": {k: v for k, v in stages.items() if k.startswith("mesh")
+                   or k in ("lsm_merge", "overflow_staging")},
+        "mesh1_cli": {"convert_s": cli["convert_s"],
+                      "sort4_launches": cli["launches"]["sort4"],
+                      "sort4_launches_by_n": cli_by_n,
+                      "byte_identical": True},
+        "forced_spill": {"points": SPILL_POINTS, "capacity": 1,
+                         "sideband_spilled": spilled.sideband_spilled,
+                         "sideband_suspect": spilled.sideband_suspect,
+                         "mesh_s": spill_s, "host_s": host_s,
+                         "byte_identical": True},
+        "owner_pass": {"n": MESH_PASS_N, "shard_rows": n_pad // MESH_SHARDS,
+                       "capacity": capacity, "stage_b_rows": stage_b,
+                       "device_ms": pass_ms, "host_wrapper_ms": host_pass_ms,
+                       "busy": pass_busy},
+        "profiled_level": {"rows": BATCH, **level_busy,
+                           "host_cumulative_ms": level_host},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
+
+
+def phase_mesh_frame(torch, np, store: Path) -> dict:
+    """Phase 8b: the phase-4 store at 1280x720 from phase 7's pose through
+    MeshPointRenderer on four shards of the card, from zero K1 and K2
+    counts; its frames against the single-device plain raster arm on the
+    card and against the same mesh on the CPU, the card's 1- and 3-shard
+    meshes against it, and the default arm's capped rungs."""
+    from point_cloud_tpu_torch.parallel.mesh import make_mesh
+    from point_cloud_tpu_torch.render import kernel, splat
+    from point_cloud_tpu_torch.render.parallel import MeshPointRenderer
+    from point_cloud_tpu_torch.render.renderer import (
+        PointRenderer, RenderSettings,
+    )
+    from point_cloud_tpu_torch.viewer import Viewer
+
+    t_phase = time.perf_counter()
+    viewer = Viewer(RenderSettings(width=FRAME_W, height=FRAME_H),
+                    device="cuda")
+    viewer.load_metadata(store / "metadata.json")
+    arm_pose(viewer)
+    scene = (viewer.streamer, viewer.camera, viewer._frustums)
+    plain = RenderSettings(width=FRAME_W, height=FRAME_H,
+                           compact_raster=False, megakernel=False,
+                           classing=False)
+    card = [torch.device("cuda:0")]
+
+    def frames_of(renderer, n):
+        out, ms = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            got = renderer.render(*scene)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(frame_planes(renderer, got))
+        return out, ms
+
+    single_r = PointRenderer(viewer.metadata, plain, device="cuda")
+    single, single_ms = frames_of(single_r, MESH_FRAMES)
+    # the main path's run: every count starts at 0 here
+    kernel.launches = splat.launches = 0
+    mesh_r = MeshPointRenderer(viewer.metadata,
+                               make_mesh(devices=card * MESH_SHARDS),
+                               settings=plain)
+    frames, mesh_ms = frames_of(mesh_r, MESH_FRAMES)
+    torch.cuda.synchronize()
+    launches = {"cull_classify": kernel.launches,
+                "splat_raster": splat.launches}
+    buckets = frames[0][3]["buckets"]
+    expect = MESH_FRAMES * MESH_SHARDS * buckets
+    if buckets <= 0 or set(launches.values()) != {expect}:
+        raise AssertionError(f"mesh frames launched {launches}, expected "
+                             f"{expect} of each ({buckets} buckets)")
+    for i, f in enumerate(frames):
+        if not same_frame(np, torch, f, single[0]):
+            raise AssertionError(f"mesh frame {i + 1} != the single-device "
+                                 "plain arm's")
+    if frames[0][3]["points_visible"] <= 0:
+        raise AssertionError("the mesh frame shows nothing")
+    t0 = time.perf_counter()
+    cpu_r = MeshPointRenderer(viewer.metadata,
+                              make_mesh(MESH_SHARDS, device="cpu"),
+                              settings=plain)
+    if not same_frame(np, torch, frames[0], frame_planes(
+            cpu_r, cpu_r.render(*scene))):
+        raise AssertionError("the card's mesh frame != the CPU mesh frame")
+    cpu_s = time.perf_counter() - t0
+    widths = {}
+    for n in (1, 3):
+        r = MeshPointRenderer(viewer.metadata, make_mesh(devices=card * n),
+                              settings=plain)
+        widths[n] = same_frame(np, torch, frames[0],
+                               frame_planes(r, r.render(*scene)))
+        if not widths[n]:
+            raise AssertionError(f"the {n}-shard mesh frame differs")
+    default_r = PointRenderer(viewer.metadata,
+                              RenderSettings(width=FRAME_W, height=FRAME_H),
+                              device="cuda")
+    default, _ = frames_of(default_r, 2)
+    busy = busy_share(torch, lambda: mesh_r.render(*scene))
+    result = {
+        "phase": "mesh_frame", "ok": True, "width": FRAME_W,
+        "height": FRAME_H, "pose": {"yaw": ARM_YAW, "pitch": ARM_PITCH},
+        "shards": MESH_SHARDS, "frames": MESH_FRAMES, "buckets": buckets,
+        "points_visible": frames[0][3]["points_visible"],
+        "lit_pixels": int((frames[0][2] != int(splat._NO_ID)).sum()),
+        "launches": launches,
+        "equals_single_device_plain_arm": True, "equals_cpu_mesh": True,
+        "equal_at_widths": widths,
+        "matches": "the plain raster arm (compact_raster, megakernel and "
+                   "classing off: every kept row through the footprint)",
+        "equals_default_arm": same_frame(np, torch, frames[0], default[-1]),
+        "default_capped_rungs": capped_rungs(default_r, scene),
+        "mesh_ms": mesh_ms,
+        "mesh_ms_median_after_first": statistics.median(mesh_ms[1:]),
+        "single_plain_ms": single_ms,
+        "single_plain_ms_median_after_first": statistics.median(single_ms[1:]),
+        "profiled_frame": busy, "cpu_mesh_s": cpu_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    viewer.close()
+    return result
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def point_multiset(np, store: Path):
+    """Every point of a store (grid winners and staged overflow) as
+    (position bytes, color) rows of two u64 words, sorted."""
+    from point_cloud_tpu_torch.core.cell import Cell
+
+    chunks = []
+    for path in sorted(store.rglob("c_*.bin")):
+        pts = Cell.from_path(path).all_points()
+        if len(pts):
+            chunks.append(np.concatenate(
+                [pts.positions.view(np.uint8).reshape(len(pts), 12),
+                 pts.colors], axis=1))
+    rows = np.ascontiguousarray(np.concatenate(chunks)).view(np.uint64)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def phase_multihost(np, tmp: Path, sort_checked: set) -> dict:
+    """Phase 8c: the phase-4 cloud as four PLY files, converted by two
+    ``--multihost --device-native`` CLI workers on the card that meet on a
+    gloo process group at a localhost coordinator; rank 0's merged store
+    must hold the point multiset of one ``--device-native`` conversion of
+    the four files."""
+    import os
+
+    from point_cloud_tpu_torch.core.metadata import Metadata
+    from point_cloud_tpu_torch.core.point import PointBatch
+    from point_cloud_tpu_torch.io.ply import write_ply
+    from point_cloud_tpu_torch.models.synth import synth_cloud
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(3)  # phase 4's cloud and colors
+    pos = synth_cloud(CLOUD_POINTS, seed=0)
+    col = rng.integers(0, 256, (CLOUD_POINTS, 4), dtype=np.uint8)
+    part = CLOUD_POINTS // MULTIHOST_FILES
+    files = []
+    for i in range(MULTIHOST_FILES):
+        files.append(tmp / f"part{i}.ply")
+        write_ply(files[-1], PointBatch(pos[i * part:(i + 1) * part],
+                                        col[i * part:(i + 1) * part]))
+    del pos, col
+    port = free_port()
+    out = tmp / "multihost"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(MULTIHOST_WORKERS):
+            env = dict(os.environ, PCT_NUM_PROCESSES=str(MULTIHOST_WORKERS),
+                       PCT_PROCESS_ID=str(rank),
+                       PCT_COORDINATOR_ADDRESS=f"localhost:{port}")
+            logs.append((tmp / f"worker{rank}.out", tmp / f"worker{rank}.err"))
+            with open(logs[-1][0], "w") as so, open(logs[-1][1], "w") as se:
+                procs.append(subprocess.Popen(
+                    cli_command("--multihost --device-native", files, out),
+                    cwd=ROOT, env=env, stdout=so, stderr=se))
+        for p in procs:
+            p.wait(timeout=CLI_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    multihost_s = time.perf_counter() - t0
+    runs = []
+    for p, (so, se) in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"multihost worker failed ({p.returncode}):\n"
+                               f"{se.read_text()[-4000:]}")
+        runs.append(json.loads(so.read_text().strip().splitlines()[-1]))
+    by_rank = [sorted_lengths(r, f"multihost rank {i}", sort_checked)
+               for i, r in enumerate(runs)]
+    single = run_cli("--device-native", files, tmp / "parts-device-native")
+    merged, direct = (point_multiset(np, out),
+                      point_multiset(np, tmp / "parts-device-native"))
+    if merged.shape != direct.shape or not np.array_equal(merged, direct):
+        raise AssertionError("the merged store's point multiset differs from "
+                             "one --device-native conversion's")
+    ma = Metadata.from_path(out / "metadata.json")
+    mb = Metadata.from_path(tmp / "parts-device-native" / "metadata.json")
+    if (ma.number_of_points != mb.number_of_points
+            or not np.array_equal(ma.bounding_box.min, mb.bounding_box.min)
+            or not np.array_equal(ma.bounding_box.max, mb.bounding_box.max)):
+        raise AssertionError("merged metadata differs")
+    if (out / "_staging").exists():
+        raise AssertionError("rank 0 left its staging stores")
+    result = {
+        "phase": "multihost", "ok": True, "workers": MULTIHOST_WORKERS,
+        "files": MULTIHOST_FILES, "points": CLOUD_POINTS,
+        "backend": "gloo", "multiset_equal": True,
+        "points_in_store": int(len(merged)),
+        "multihost_s": multihost_s,
+        "worker_s": [r["multihost_s"] for r in runs],
+        "sort4_launches_by_rank": [r["launches"]["sort4"] for r in runs],
+        "sort4_launches_by_n_by_rank": by_rank,
+        "single_device_native_s": single["convert_s"],
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1733,6 +2170,9 @@ def main() -> int:
         served = phase_serve(torch, np, tmp / "device-native", tmp, smi,
                              framed["raster"]["sm_clock_mhz_under_load"])
         armed = phase_arms(torch, np, tmp / "device-native", sort_checked)
+        meshed = phase_mesh_convert(torch, np, tmp, sort_checked)
+        mesh_frame = phase_mesh_frame(torch, np, tmp / "device-native")
+        multihost = phase_multihost(np, tmp, sort_checked)
     pulled = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "point_cloud_tpu", "bench"))
     if pulled:
@@ -1754,7 +2194,8 @@ def main() -> int:
     by_path = {name: {"orbit": frame_launches[name],
                       "serve": served["launches"][name],
                       "window": served["window"]["launches"][name],
-                      "arms": arm_launches[name]}
+                      "arms": arm_launches[name],
+                      "mesh": mesh_frame["launches"][name]}
                for name in frame_launches}
     fp1 = served["footprint1"]
     emit_k, merge_k = armed["emit"], armed["merge"]
@@ -1787,6 +2228,14 @@ def main() -> int:
                          "by_n": sliced["device_sort4_launches_by_n"]},
             "arms": {"launches": arm_launches["sort4"],
                      "by_n": armed["result"]["sort4_launches_by_n"]},
+            "mesh": {"launches": meshed["sort4_launches"],
+                     "by_n": meshed["sort4_launches_by_n"]},
+            "--mesh 1": {
+                "launches": meshed["mesh1_cli"]["sort4_launches"],
+                "by_n": meshed["mesh1_cli"]["sort4_launches_by_n"]},
+            "multihost": {
+                "launches": multihost["sort4_launches_by_rank"],
+                "by_n": multihost["sort4_launches_by_n_by_rank"]},
         },
         "checked_n": sorted(sort_checked),
         "bound_ms_by_n": {n: sort4_bound_ms(n)[0] for n in sort_ms_by_n},

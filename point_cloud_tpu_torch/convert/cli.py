@@ -1,7 +1,7 @@
 """Converter CLI of the port (counterpart of convert/cli.py).
 
 Takes the reference's flags (:func:`build_parser`, a copy of the
-reference's; the help of the flags not ported yet says so):
+reference's):
 
 - ``--device``: the port's :class:`PipelinedConverter` on ``cuda`` — the
   device pass on the card, the per-cell LSM merge in NumPy on the host.
@@ -10,10 +10,15 @@ reference's; the help of the flags not ported yet says so):
   host.
 - ``--native`` and the host default: the port's copies of the
   reference's ``NativeConverter`` and ``Converter``.
-- ``--mesh`` and ``--multihost`` are not ported yet and exit non-zero.
+- ``--mesh N``: the port's :class:`MeshConverter` over a mesh of N of the
+  card's devices (0 = every one): the owner-sharded pass on the mesh,
+  the per-cell LSM merge in NumPy on the host.
+- ``--multihost``: this process is one worker of a multi-host conversion
+  (``parallel/launch.py``: identity from ``PCT_*``, gloo barriers, rank 0
+  merges), converting with whichever backend the other flags pick.
 
-``--device`` and ``--device-native`` fail without a card; they never
-pick the CPU by themselves.
+``--device``, ``--device-native`` and ``--mesh`` fail without a card;
+they never pick the CPU by themselves.
 
 ``--profile`` prints the per-stage summary on stderr and, as the last
 line of stdout, one JSON object with the conversion's wall time, its
@@ -85,8 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--mesh", type=int, default=None, metavar="N",
-        help="Shard conversion over an N-device mesh (not ported yet: "
-             "exits non-zero).",
+        help="Shard conversion over an N-device mesh (0 = all devices).",
     )
     parser.add_argument(
         "--native", action="store_true",
@@ -107,8 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--multihost", action="store_true",
-        help="Pod launch over several hosts (not ported yet: exits "
-             "non-zero).",
+        help="Multi-host launch: this process is one worker (identity "
+             "from PCT_NUM_PROCESSES, PCT_PROCESS_ID and "
+             "PCT_COORDINATOR_ADDRESS; none set = one worker).",
     )
     parser.add_argument(
         "--profile", action="store_true",
@@ -126,12 +131,6 @@ def main(argv=None) -> int:
         format="%(levelname)s %(name)s: %(message)s",
     )
     log = logging.getLogger("point_cloud_tpu_torch.cli")
-
-    if args.mesh is not None or args.multihost:
-        flag = "--mesh" if args.mesh is not None else "--multihost"
-        log.error("%s is not ported yet (ROADMAP.md); use --device, "
-                  "--device-native or --native", flag)
-        return 2
 
     files = list(args.files)
     for directory in args.directories:
@@ -152,19 +151,56 @@ def main(argv=None) -> int:
 
         factory = NativeConverter
         batch_size = args.batch_size or 1 << 18
-    elif args.device_native or args.device:
+    elif args.device_native:
         from ..ops.runtime import resolve_device
+        from .native_device import NativeDevicePipelined
 
-        if args.device_native:
-            from .native_device import NativeDevicePipelined as cls
-        else:
-            from .pipelined import PipelinedConverter as cls
-        factory = functools.partial(cls, device=resolve_device("cuda"))
+        factory = functools.partial(NativeDevicePipelined,
+                                    device=resolve_device("cuda"))
+        batch_size = args.batch_size or 1 << 18
+    elif args.mesh is not None:
+        from ..ops.runtime import resolve_device
+        from ..parallel.mesh_converter import make_mesh_converter_factory
+
+        resolve_device("cuda")  # no card: raise before any store I/O
+        factory = make_mesh_converter_factory(args.mesh,
+                                              local=args.multihost)
+        batch_size = args.batch_size or 1 << 20
+    elif args.device:
+        from ..ops.runtime import resolve_device
+        from .pipelined import PipelinedConverter
+
+        factory = functools.partial(PipelinedConverter,
+                                    device=resolve_device("cuda"))
         batch_size = args.batch_size or 1 << 18
 
     cache_size = (
         args.cache_size if args.cache_size is not None else DEFAULT_CACHE_SIZE
     )
+    if args.multihost:
+        from ..parallel.launch import LaunchConfig, run_multihost
+
+        config = LaunchConfig.from_env()
+        log.info(
+            "multihost launch: process %d of %d (coordinator %s)",
+            config.process_id, config.num_processes,
+            config.coordinator_address or "<env>",
+        )
+        t0 = time.perf_counter()
+        run_multihost(files, output, config=config,
+                      converter_factory=factory, batch_size=batch_size,
+                      cache_size=cache_size)
+        if args.profile:
+            from ..ops import sort
+
+            print(json.dumps({
+                "multihost_s": time.perf_counter() - t0,
+                "process_id": config.process_id,
+                "num_processes": config.num_processes,
+                "launches": {"sort4": sort.launches},
+                "launches_by_n": {"sort4": sort.launches_by_n},
+            }))
+        return 0
     if not args.profile:
         convert_from_paths(files, output, batch_size=batch_size,
                            cache_size=cache_size, converter_factory=factory)

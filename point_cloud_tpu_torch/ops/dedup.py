@@ -175,6 +175,17 @@ def _first_of_run(ch_s, sh_s):
     return same_hash, first
 
 
+def any_in_run(first, flags):
+    """Per row: whether any row of its run holds ``flags``, the runs
+    starting where ``first`` is set (one segment maximum over the run
+    ids)."""
+    run = (torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32)
+           - 1).long()
+    hit = torch.zeros(first.shape[0], dtype=torch.int32, device=first.device)
+    hit = hit.scatter_reduce(0, run, flags.to(torch.int32), reduce="amax")
+    return hit[run] > 0
+
+
 def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     """One dedup pass over a padded batch, all per-row outputs
     (dedup.py:263-320).
@@ -186,7 +197,6 @@ def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     next_cell_idx_s, suspect), sorted by (cell hash, slot hash, distance,
     arrival).
     """
-    n = positions.shape[0]
     ch_s, sh_s, db_s, perm, cell_idx, sub_idx, dist = _hash_sort(
         positions, valid, cell_size, sub_cell_radius
     )
@@ -209,12 +219,7 @@ def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     near_tie = _near_tie_mask(same_hash, db_s, positions[p], valid_s)
     mismatch = mismatch | near_tie
     mismatch[0] = False
-    seg_id = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
-    seg_bad = torch.zeros(n, dtype=torch.int32, device=positions.device)
-    seg_bad = seg_bad.scatter_reduce(
-        0, seg_id.long(), mismatch.to(torch.int32), reduce="amax"
-    )
-    suspect = (seg_bad[seg_id.long()] > 0) & valid_s
+    suspect = any_in_run(first, mismatch) & valid_s
 
     return (
         perm, winner, valid_s, cell_idx_s, sub_idx_s, dist_s,

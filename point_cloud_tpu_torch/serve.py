@@ -18,8 +18,8 @@ Port of the reference's ``serve.py``: every endpoint, status code and JSON
 body is the reference's (``tests/test_torch_serve.py`` holds the two
 servers' answers equal). Frames render through the port's ``Viewer`` on
 ``device`` (``"cuda"`` unless the caller asks for the CPU); without a card
-the server raises at start-up. Rendering over a device mesh (``--mesh``,
-``mesh_devices``) is not ported and is refused (ROADMAP.md). Unlike the
+the server raises at start-up; ``--mesh N`` (``mesh_devices``) renders
+over a mesh of N of its devices (``render/parallel.py``). Unlike the
 reference, a store upload has a total budget besides the per-file cap
 (``STORE_UPLOAD_LIMIT_BYTES``): an upload that would take a store's files
 past it gets HTTP 413.
@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import io
 import json
-import logging
 import os
 import re
 import threading
@@ -68,14 +67,6 @@ STORE_UPLOAD_LIMIT_BYTES = 1 << 34  # 16 GiB
 class UploadTooLarge(ValueError):
     """Upload exceeds UPLOAD_LIMIT_BYTES or a store's upload budget (HTTP
     413)."""
-
-
-def refuse_mesh(mesh_devices) -> None:
-    """Rendering over a device mesh is not ported (ROADMAP.md)."""
-    if mesh_devices:
-        raise NotImplementedError(
-            "rendering over a device mesh (--mesh, mesh_devices) is not "
-            "ported yet (ROADMAP.md); serve from one device")
 
 
 def _receive_exact(target: Path, stream, length: int, offset: int) -> None:
@@ -127,7 +118,6 @@ class StoreServer:
         from .render.renderer import RenderSettings
         from .viewer.app import Viewer
 
-        refuse_mesh(mesh_devices)
         self.store_dir = Path(store_dir)
         # None = resolve the module default at USE time (so a runtime
         # change to UPLOAD_LIMIT_BYTES applies to live servers)
@@ -138,7 +128,8 @@ class StoreServer:
         settings = RenderSettings(
             width=width, height=height, transfer_depth=False
         )
-        self.viewer = Viewer(settings, device=device)
+        self.viewer = Viewer(settings, mesh_devices=mesh_devices,
+                             device=device)
         self.viewer.load_metadata(self.store_dir / "metadata.json")
         self.convert_root = Path(convert_root) if convert_root else None
         self._converter = None
@@ -521,8 +512,8 @@ class StoreRegistry:
                  store_upload_limit=None):
         from .ops.runtime import resolve_device
 
-        refuse_mesh(mesh_devices)
         self.root = Path(root)
+        self._mesh_devices = mesh_devices
         self._width, self._height = width, height
         self._convert_root = convert_root
         # resolved here, so a server asked for a missing card fails at
@@ -575,6 +566,7 @@ class StoreRegistry:
                     self._dirs[name], width=self._width,
                     height=self._height,
                     convert_root=self._convert_root,
+                    mesh_devices=self._mesh_devices,
                     upload_limit=self.upload_limit, device=self._device,
                 )
                 self._servers[name] = srv
@@ -1077,8 +1069,8 @@ def serve(store_dir, host="127.0.0.1", port=8080, width=640, height=480,
     restricted to files under that directory. ``upload_limit`` caps any
     single uploaded file in bytes (default PCT_UPLOAD_LIMIT_BYTES),
     ``store_upload_limit`` the files of one uploaded store together
-    (default STORE_UPLOAD_LIMIT_BYTES). Frames render on ``device``;
-    ``mesh_devices`` > 0 raises NotImplementedError."""
+    (default STORE_UPLOAD_LIMIT_BYTES). Frames render on ``device``, over
+    a mesh of ``mesh_devices`` of its devices when > 0."""
     registry = StoreRegistry(
         store_dir, width=width, height=height, convert_root=convert_root,
         mesh_devices=mesh_devices, upload_limit=upload_limit, device=device,
@@ -1106,8 +1098,8 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--mesh", type=int, default=0, metavar="N",
-        help="render frames over an N-device mesh: not ported yet, N > 0 "
-        "is refused",
+        help="render frames data-parallel over an N-device mesh "
+        "(0 = one device)",
     )
     parser.add_argument(
         "--upload-limit", type=int, default=None, metavar="BYTES",
@@ -1120,15 +1112,10 @@ def main(argv=None) -> int:
         "(default 16 GiB)",
     )
     args = parser.parse_args(argv)
-    if args.mesh:
-        logging.getLogger("point_cloud_tpu_torch.serve").error(
-            "--mesh is not ported yet (ROADMAP.md); serve from one card")
-        return 2
-
     # frames render on the card; without one this raises
     httpd = serve(args.store, args.host, args.port, args.width,
                   args.height, convert_root=args.convert_root,
-                  upload_limit=args.upload_limit,
+                  mesh_devices=args.mesh, upload_limit=args.upload_limit,
                   store_upload_limit=args.store_upload_limit)
     print(f"serving {args.store} on http://{args.host}:{args.port}")
     httpd.serve_forever()

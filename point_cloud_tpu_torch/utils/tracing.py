@@ -1,8 +1,7 @@
 """Tracing / profiling: per-stage wall timers.
 
-Copy of the reference's ``utils/tracing.py`` without ``device_trace``
-(a ``jax.profiler`` wrapper; its ``torch.profiler`` counterpart is not
-ported yet).
+Copy of the reference's ``utils/tracing.py``; its ``device_trace`` (a
+``jax.profiler`` wrapper) runs on ``torch.profiler`` here.
 
 The reference's only observability is an FPS readout and a wall-time log
 (reference: bevy FrameTimeDiagnosticsPlugin read at
@@ -103,3 +102,25 @@ def stage(name: str):
         with timer(name):
             yield
 
+
+@contextlib.contextmanager
+def device_trace(log_dir):
+    """Capture a device trace of the block into ``log_dir`` (created if
+    missing) as a Chrome trace file, ``trace_<pid>_<n>.json``, readable
+    by Perfetto or chrome://tracing: the CPU ops, and the CUDA kernels
+    when a card is present (``torch.profiler``)."""
+    import os
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    n = len(list(out.glob(f"trace_{os.getpid()}_*.json")))
+    prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))

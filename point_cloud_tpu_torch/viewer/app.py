@@ -22,9 +22,10 @@ the cloud bbox and the view distance becomes ``max_cell_size * 5``
 
 Port of the reference's ``viewer/app.py``: the same class and methods,
 rendering through the port's ``PointRenderer`` on ``device`` (``"cuda"``
-unless the caller asks for the CPU). The reference's ``mesh_devices``
-(data-parallel frames over a device mesh) and its JAX compile-cache setup
-are not part of the port; multi-device rendering is queued in ROADMAP.md.
+unless the caller asks for the CPU), or with ``mesh_devices`` > 0 through
+``MeshPointRenderer`` over ``make_mesh(mesh_devices, device=device)``
+(data-parallel frames, images equal to the single-device plain raster
+arm). The reference's JAX compile-cache setup has no counterpart.
 """
 
 from __future__ import annotations
@@ -109,8 +110,12 @@ class Viewer:
     streaming_scale: float  # property below: changes re-stream immediately
 
     def __init__(self, settings: RenderSettings | None = None,
-                 pool: ThreadPool | None = None, device="cuda"):
+                 pool: ThreadPool | None = None, mesh_devices: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
+        # mesh_devices > 0 renders frames data-parallel over a device mesh
+        # (render/parallel.py)
+        self.mesh_devices = int(mesh_devices)
         self.settings = settings or RenderSettings()
         self.pool = pool or ThreadPool(2)  # ThreadPoolPlugin size (2)
         self.metadata = Metadata()  # placeholder "Unknown" cloud
@@ -139,6 +144,13 @@ class Viewer:
         self._camera_dirty = True
 
     def _make_renderer(self, metadata):
+        if self.mesh_devices > 0:
+            from ..parallel.mesh import make_mesh
+            from ..render.parallel import MeshPointRenderer
+
+            return MeshPointRenderer(
+                metadata, make_mesh(self.mesh_devices, device=self.device),
+                settings=self.settings)
         return PointRenderer(metadata, self.settings, device=self.device)
 
     # --- metadata loading (src/plugins/metadata.rs) ---------------------------

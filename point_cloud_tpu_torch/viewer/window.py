@@ -25,8 +25,8 @@ Run it::
 
 Port of the reference's ``viewer/window.py``: ``tests/test_torch_window.py``
 runs the reference's window cases on it. Frames render on the card unless
-the caller passes ``device="cpu"``; rendering over a device mesh
-(``--mesh``) is refused (ROADMAP.md).
+the caller passes ``device="cpu"``; ``--mesh N`` renders over a mesh of N
+of its devices (``render/parallel.py``).
 """
 
 from __future__ import annotations
@@ -551,24 +551,21 @@ def run_window(store: str, width: int = 960, height: int = 600,
     """Open a local window on a converted store and run the event loop.
 
     ``backend=None`` builds a :class:`TkBackend` (needs a display);
-    tests pass a stub. Frames render on ``device``; ``mesh_devices`` > 0
-    raises NotImplementedError. Returns the number of frames rendered.
+    tests pass a stub. Frames render on ``device``, over a mesh of
+    ``mesh_devices`` of its devices when > 0. Returns the number of
+    frames rendered.
     """
     from pathlib import Path
 
     from ..render.renderer import RenderSettings
     from .app import Viewer
 
-    if mesh_devices:
-        raise NotImplementedError(
-            "rendering over a device mesh (--mesh, mesh_devices) is not "
-            "ported yet (ROADMAP.md); render on one device")
     p = Path(store)
     if p.is_dir():  # accept the store directory or its metadata.json
         p = p / "metadata.json"
 
     settings = RenderSettings(width=width, height=height)
-    viewer = Viewer(settings, device=device)
+    viewer = Viewer(settings, mesh_devices=mesh_devices, device=device)
     viewer.load_metadata(p)
     backend = backend or TkBackend(width, height)
     loop = WindowLoop(viewer, backend)
@@ -591,17 +588,13 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=None,
                    help="exit after N frames (default: until closed)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="render over an N-device mesh: not ported yet, "
-                   "N > 0 is refused")
+                   help="render data-parallel over an N-device mesh "
+                   "(0 = one device)")
     args = p.parse_args(argv)
-    if args.mesh:
-        log.error("--mesh is not ported yet (ROADMAP.md); render on one card")
-        return 2
-
     # frames render on the card; without one this raises
     try:
         run_window(args.store, width=args.width, height=args.height,
-                   max_frames=args.frames)
+                   max_frames=args.frames, mesh_devices=args.mesh)
     except Exception as err:  # headless host: say so instead of a Tk dump
         if "DISPLAY" in str(err) or "display" in str(err):
             p.error(

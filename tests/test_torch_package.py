@@ -112,14 +112,39 @@ def test_resolve_device_is_explicit():
             resolve_device("cuda")
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--multihost"]])
-def test_cli_unported_backends_exit_nonzero(tmp_path, flags, caplog):
+@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--multihost",
+                                                    "--native"]])
+def test_cli_unported_backends_exit_nonzero(tmp_path, flags, monkeypatch):
+    """The mesh and multi-host flags: ``--mesh 2`` needs a card on a
+    CPU-only host (it raises before any store I/O, like ``--device``);
+    ``--multihost --native`` without worker identity in the environment
+    runs as the one worker and leaves the merged store at ``-o``."""
     from point_cloud_tpu_torch.convert import cli
+    from point_cloud_tpu_torch.core.point import PointBatch
+    from point_cloud_tpu_torch.io.ply import write_ply
 
-    rc = cli.main([*flags, "-o", str(tmp_path / "s"), "-f", "x.ply"])
-    assert rc != 0
-    assert "not ported yet (ROADMAP.md)" in caplog.text
-    assert not (tmp_path / "s").exists()
+    for name in ("PCT_NUM_PROCESSES", "PCT_PROCESS_ID",
+                 "PCT_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                 "JAX_PROCESS_ID", "JAX_COORDINATOR_ADDRESS",
+                 "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    src = tmp_path / "x.ply"
+    rng = np.random.default_rng(5)
+    write_ply(src, PointBatch(
+        rng.uniform(-20, 20, (1500, 3)).astype(np.float32),
+        rng.integers(0, 256, (1500, 4)).astype(np.uint8)))
+    argv = [*flags, "-o", str(tmp_path / "s"), "-f", str(src)]
+    if flags[0] == "--mesh":
+        if torch.cuda.is_available():
+            pytest.skip("a card is present; this checks the CPU-only refusal")
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(argv)
+        assert not (tmp_path / "s").exists()
+        return
+    assert cli.main(argv) == 0
+    meta = json.loads((tmp_path / "s" / "metadata.json").read_text())
+    assert meta["number_of_points"] == 1500
+    assert not (tmp_path / "s" / "_staging").exists()
 
 
 @pytest.mark.parametrize("flag", ["--device", "--device-native"])

@@ -378,11 +378,22 @@ def test_multi_store_answers(multi_pair, path):
 
 
 def test_mesh_is_refused(store):
-    assert tserve.main([str(store), "--mesh", "1"]) == 2
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tserve.StoreServer(store, mesh_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tserve.serve(store, port=0, mesh_devices=1, device="cpu")
+    """``mesh_devices`` renders on the CPU through the mesh renderer (the
+    same PNG as one device's plain raster arm would give is held in
+    tests/test_torch_render_parallel.py); the CLI's ``--mesh`` is refused
+    only for want of a card."""
+    from point_cloud_tpu_torch.render.parallel import MeshPointRenderer
+
+    srv = tserve.StoreServer(store, width=48, height=32, mesh_devices=2,
+                             device="cpu")
+    assert isinstance(srv.viewer.renderer, MeshPointRenderer)
+    assert srv.viewer.renderer.mesh.size == 2
+    assert srv.render_png(yaw=0.3)[:8] == b"\x89PNG\r\n\x1a\n"
+    httpd = tserve.serve(store, port=0, mesh_devices=1, device="cpu")
+    httpd.server_close()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tserve.main([str(store), "--mesh", "1", "--port", "0"])
 
 
 def test_server_needs_a_card_unless_asked_for_the_cpu(store):

@@ -189,7 +189,7 @@ def test_close_request_exits_loop(viewer):
 
 def test_run_window_with_store(tmp_path):
     """run_window on a store (its metadata.json or its directory) on the
-    CPU: frames stream the store in and blit; --mesh is refused."""
+    CPU: frames stream the store in and blit, over a device mesh too."""
     store = make_store(tmp_path / "store", 2000, 11)
     backend = FakeBackend()
     assert run_window(str(store / "metadata.json"), width=64, height=48,
@@ -199,20 +199,25 @@ def test_run_window_with_store(tmp_path):
     assert (backend.blits[-1] != backend.blits[-1][0, 0]).any()
     assert run_window(str(store), width=64, height=48, max_frames=1,
                       backend=FakeBackend(), device="cpu") == 1
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_window(str(store), max_frames=1, backend=FakeBackend(),
-                   mesh_devices=8, device="cpu")
+    mesh = FakeBackend()
+    assert run_window(str(store), width=64, height=48, max_frames=2,
+                      backend=mesh, mesh_devices=8, device="cpu") == 2
+    assert mesh.blits[-1].shape == (48, 64, 3)
+    assert (mesh.blits[-1] != mesh.blits[-1][0, 0]).any()
 
 
 def test_window_cli_refuses_mesh_and_needs_a_card(tmp_path):
+    """The window's CLI renders on the card, ``--mesh`` too: on a
+    CPU-only host both are refused for want of a card."""
     from point_cloud_tpu_torch.viewer.window import main
 
     store = make_store(tmp_path / "store", 200, 12)
-    assert main([str(store), "--mesh", "1", "--frames", "1"]) == 2
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the CPU-only refusal")
     with pytest.raises(RuntimeError, match="cuda"):
         run_window(str(store), max_frames=1, backend=FakeBackend())
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([str(store), "--mesh", "1", "--frames", "1"])
 
 
 TOGGLES = [("v", "settings", "voronoi"),
