@@ -13,8 +13,9 @@ use. Imports no JAX. Phases, one JSON line each:
    random ones and five that break merge sorts), exact equality, and
    both times at 2^17, 2^18 and 2^20, the lengths the slice sorts most
    (CUDA events, median of 7), with the kernel's own device time
-   (``torch.profiler``). The sizes include every bucket the slice sorts
-   (2^15..2^21 at batch 2^18);
+   (``torch.profiler``), and at 2^18 the library call
+   ``torch.unique(..., dim=0)`` (:func:`sort4_library_ms`). The sizes
+   include every bucket the slice sorts (2^15..2^21 at batch 2^18);
 3. pass: ``get_pipeline("conversion", n=2^20)`` and ``dedup_pass_light``
    on the card against the same inputs through the port on the CPU,
    exact equality, and the pass times on the card;
@@ -61,7 +62,9 @@ use. Imports no JAX. Phases, one JSON line each:
    1280x720, 4 frames each from zero launch counts; steady frames equal
    within their groups, first frames equal to the CPU renderer's, and
    every bucket the sorted arms sort held through K3, ``sort4`` and K4
-   against their plain versions.
+   against their plain versions; K4 also on a dense list of 2^26 rows
+   with no ``_NO_ID`` tail (``dense_merge_list``), bit for bit, then
+   timed there and on the largest bucket from a flushed L2.
 8. mesh, the multi-device path, on four logical shards of the one card
    (``make_mesh(devices=[cuda:0] * 4)``): (a) phase 4's PLY through
    ``MeshConverter`` from zero ``sort4`` counts, the first call at every
@@ -89,11 +92,12 @@ included), ``plain_ms`` the event time of the plain version, and
 ``bound_ms`` the byte bound at the H100 SXM's HBM rate, 3.35 TB/s
 (``bound_memory``: every byte counted once from HBM; a reading below it
 means the inputs were still in the 50 MB L2), with ``sort4`` 16 B read
-and 16 B written a row and ``cull_classify`` as ``cull_bound_ms`` says.
+and 16 B written a row, ``cull_classify`` as ``cull_bound_ms`` says and
+``sorted_merge`` the rows up to the ``_NO_ID`` tail (``merge_bound_ms``).
 Every timed block starts on a card held busy for WARM_S seconds (an idle
-H100 clocks 840 of 1,980 MHz), and K1 is timed from an L2 flushed before
-each call, as a frame finds it. ``splat_raster``'s is the larger of its byte bound
-(``raster_bound_ms``) and its instruction bound (``raster_instr_bound_ms``: the
+H100 clocks 840 of 1,980 MHz), and K1, K3 and K4 are timed from an L2
+flushed before each call, as a frame finds it. ``splat_raster``'s is
+the larger of its byte bound (``raster_bound_ms``) and its instruction bound (``raster_instr_bound_ms``: the
 fragments it lights and those it only tests, each times its instructions
 a fragment, over the card's lanes at the clock ``nvidia-smi`` reports
 under the kernel's load); the ``raster_bound`` line before it prints both,
@@ -178,16 +182,22 @@ def cuda_ms(fn, reps: int = 7, setup=None) -> float:
 
 
 PROFILE_TRIES = 3
+profile_spans: list = []  # per profile: {kernel: [spans seen, launched]}
 
 
-def device_kernel_ms(torch, fn, names: tuple, reps: int = 20) -> float:
-    """Device time a call of ``fn`` spends in the kernels whose names hold
-    one of ``names``: ``fn()`` run ``reps`` times under torch.profiler,
-    those kernels' summed activity over ``reps``. The wrapper's host work
-    and any other device work in ``fn`` are left out. A profile that holds
-    no device activity of those kernels is taken again, up to
-    PROFILE_TRIES profiles (a run on the H100 once lost a whole
-    profile's device events); raises if none saw such a kernel."""
+def device_kernel_ms(torch, fn, per_call: dict, reps: int = 20) -> float:
+    """Device time a call of ``fn`` spends in its kernels: ``per_call``
+    maps a name that a kernel's name holds to how many such kernels a
+    call launches. ``fn()`` runs ``reps`` times under torch.profiler; the
+    time is, summed over the names, the mean span of that name's kernels
+    times their count a call. The wrapper's host work and any other
+    device work in ``fn`` are left out. The profiler drops kernels: 3 of
+    20 and 6 of 25 in every profile of two smoke runs on the H100, and
+    once a whole profile's. A mean over the kernels it kept is unbiased
+    by that where a sum over ``reps`` is not; a profile that kept fewer
+    than half of some name's kernels is taken again, up to PROFILE_TRIES
+    profiles, and raises after that. ``profile_spans`` keeps what each
+    profile saw."""
     from torch.profiler import ProfilerActivity, profile
 
     warm_clock(torch)
@@ -199,13 +209,28 @@ def device_kernel_ms(torch, fn, names: tuple, reps: int = 20) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(name in e.name for name in names)]
-        if spans:
-            return sum(spans) / reps / 1e3
-    raise AssertionError(f"the profiler saw no kernel named {names} in "
-                         f"{PROFILE_TRIES} profiles")
+        spans = {name: [] for name in per_call}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for name in per_call:
+                    if name in e.name:
+                        spans[name].append(e.time_range.elapsed_us())
+        profile_spans.append({name: [len(spans[name]), reps * count]
+                              for name, count in per_call.items()})
+        if all(2 * len(spans[name]) >= reps * count
+               for name, count in per_call.items()):
+            return sum(statistics.fmean(spans[name]) * count
+                       for name, count in per_call.items() if count) / 1e3
+    raise AssertionError(f"the profiler kept too few kernels of {per_call} "
+                         f"in {PROFILE_TRIES} profiles: "
+                         f"{profile_spans[-PROFILE_TRIES:]}")
+
+
+def sort4_kernels(n: int) -> dict:
+    """The kernels one ``sort4`` of ``n`` rows launches: the tile sort,
+    then one merge a doubling from TILE_ROWS to ``n`` (csrc/sort4.cu)."""
+    return {"sort4_tile": 1,
+            "sort4_merge": max(0, n.bit_length() - TILE_ROWS.bit_length())}
 
 
 def sort_keys(kind: str, n: int, rng):
@@ -278,16 +303,19 @@ def phase_kernel(torch, np, sort) -> dict:
         p1 = cuda_ms(lambda: sort.sort4_reference(*cols))
         k1 = cuda_ms(lambda: sort.sort4(*cols))
         d = device_kernel_ms(torch, lambda: sort.sort4(*cols),
-                             ("sort4_tile", "sort4_merge"))
+                             sort4_kernels(1 << log_n))
         k2 = cuda_ms(lambda: sort.sort4(*cols))
         p2 = cuda_ms(lambda: sort.sort4_reference(*cols))
         sort_ms[1 << log_n] = [k1, k2]
         plain_ms[1 << log_n] = [p1, p2]
         device_ms[1 << log_n] = d
+        if log_n == MAIN_LOG_N:
+            library_ms = sort4_library_ms(torch, cols, sort.sort4(*cols))
     result = {
         "phase": "kernel_vs_plain", "ok": True, "checked": checked,
         "max_abs_err": worst, "sort_ms_by_n": sort_ms,
         "plain_ms_by_n": plain_ms, "sort_device_ms_by_n": device_ms,
+        "library_ms": library_ms,
     }
     emit(result)
     return result
@@ -302,6 +330,21 @@ def sort4_bound_ms(n: int) -> tuple[float, str]:
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes"
     return ops_ms, "operations"
+
+
+def sort4_library_ms(torch, cols, sorted_cols, reps: int = 7) -> float:
+    """CUDA event time of ``torch.unique(torch.stack(cols, 1), dim=0)``,
+    the one PyTorch call that computes ``sort4``'s function here: the
+    fourth column is an arrival iota, so every row is unique and the call
+    returns ``sort4``'s output as rows. Checked equal to ``sorted_cols``
+    (``sort4``'s output) first. The port never calls it."""
+    def call():
+        return torch.unique(torch.stack(cols, 1), dim=0)
+
+    if not torch.equal(call(), torch.stack(sorted_cols, 1)):
+        raise AssertionError(f"torch.unique(dim=0) != sort4 at "
+                             f"{cols[0].shape[0]} rows")
+    return cuda_ms(call, reps=reps)
 
 
 def phase_pass(torch, np, dedup, get_pipeline) -> dict:
@@ -601,10 +644,11 @@ def run_rungs(splat, fb, inp, raster):
         footprint=inp["footprint"], voronoi=inp["voronoi"], raster=raster)
 
 
-def time_kernel(torch, kernel_fn, plain_fn, names: tuple, plain_reps: int,
+def time_kernel(torch, kernel_fn, plain_fn, name: str, plain_reps: int,
                 setup=None) -> dict:
-    """Plain, kernel, kernel, plain on one card. ``ms``: the kernel's own
-    device time a call (:func:`device_kernel_ms`, twice); ``wrapper_ms``:
+    """Plain, kernel, kernel, plain on one card, for a kernel that
+    ``kernel_fn`` launches once. ``ms``: its own device time a call
+    (:func:`device_kernel_ms`, twice); ``wrapper_ms``:
     CUDA events around the wrapper call between them; ``plain_ms``: CUDA
     events around the plain version, before and after. ``setup()`` runs
     before each timed call (outside the event span)."""
@@ -612,9 +656,9 @@ def time_kernel(torch, kernel_fn, plain_fn, names: tuple, plain_reps: int,
         return fn if setup is None else lambda: (setup(), fn())
 
     p1 = cuda_ms(plain_fn, reps=plain_reps, setup=setup)
-    d1 = device_kernel_ms(torch, with_setup(kernel_fn), names)
+    d1 = device_kernel_ms(torch, with_setup(kernel_fn), {name: 1})
     wrapper = cuda_ms(kernel_fn, setup=setup)
-    d2 = device_kernel_ms(torch, with_setup(kernel_fn), names)
+    d2 = device_kernel_ms(torch, with_setup(kernel_fn), {name: 1})
     p2 = cuda_ms(plain_fn, reps=plain_reps, setup=setup)
     return {"ms": (d1 + d2) / 2, "ms_runs": [d1, d2], "wrapper_ms": wrapper,
             "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
@@ -919,13 +963,13 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     cull_t = time_kernel(
         torch, lambda: kernel.cull_classify(*cargs, **ckw),
         lambda: kernel.cull_classify_reference(*cargs, **ckw),
-        ("cull_classify_kernel",), plain_reps=3, setup=l2_flush(torch))
+        "cull_classify_kernel", plain_reps=3, setup=l2_flush(torch))
     inp = raster_inputs(splat, kernel, *big)
     fb_big = big[0].clone()
     raster_t = time_kernel(
         torch, lambda: run_rungs(splat, fb_big, inp, None),
         lambda: run_rungs(splat, fb_big, inp, splat.splat_raster_reference),
-        ("splat_raster_kernel",), plain_reps=2,
+        "splat_raster_kernel", plain_reps=2,
         setup=lambda: fb_big.copy_(big[0]))
     # the large windows' time: the synthetic bucket, each run from its own
     # plane
@@ -933,7 +977,7 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     synth_ms = device_kernel_ms(
         torch, lambda: (fb_synth.copy_(synth_fb),
                         run_rungs(splat, fb_synth, synth_inp, None)),
-        ("splat_raster_kernel",))
+        {"splat_raster_kernel": 1})
     frags, touched = lit_fragments(torch, splat, inp)
     tested = tested_fragments(splat, inp)
     clock_mhz = sm_clock_under_load(
@@ -1309,7 +1353,7 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
     fp1_ms = device_kernel_ms(
         torch, lambda: (fb_big.copy_(big[0]),
                         run_rungs(splat, fb_big, inp, None)),
-        ("splat_raster_kernel",))
+        {"splat_raster_kernel": 1})
     frags, touched = lit_fragments(torch, splat, inp)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     fp1_bound = {
@@ -1495,15 +1539,41 @@ def fragments_bound_ms(length: int, rows: int, fragments: int):
                                                           "operations")
 
 
-def merge_bound_ms(n: int, winners: int):
-    """Least time for K4 on one bucket: bytes at the HBM rate (the pixel
-    column read once, 4 B a row; a winner's depth bits and id, 8 B, and
-    its framebuffer word read and written, 16 B) against two integer
-    compares a row at the f32 peak; the larger and which it is."""
-    bytes_ms = (4 * n + 24 * winners) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * n / PEAK_OPS_PER_S * 1e3
+def merge_bound_ms(valid: int, n: int, winners: int):
+    """Least time for K4 on ``n`` sorted rows whose first ``valid`` are not
+    ``_NO_ID``: bytes at the HBM rate (the pixel column read once up to
+    the row that starts the tail, 4 B a row; a winner's depth bits and id,
+    8 B, and its framebuffer word read and written, 16 B) against two
+    integer compares a row read at the f32 peak; the larger and which it
+    is. No row of the tail can win, so the work needs none of it."""
+    rows = min(valid + 1, n)
+    bytes_ms = (4 * rows + 24 * winners) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * rows / PEAK_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                           "operations")
+
+
+DENSE_MERGE_ROWS = 1 << 26  # the sorted arm's largest fragment length
+
+
+def run_starts(torch, pix):
+    """Where a sorted pixel column starts a run."""
+    first = torch.ones_like(pix, dtype=torch.bool)
+    first[1:] = pix[1:] != pix[:-1]
+    return first
+
+
+def dense_merge_list(torch, np, splat):
+    """K4's dense list: DENSE_MERGE_ROWS fragment rows at random pixels
+    over the frame (seed 0), none ``_NO_ID``, ordered by ``sort4``, so
+    nearly every pixel wins and the whole pixel column is needed."""
+    rng = np.random.default_rng(0)
+    n = DENSE_MERGE_ROWS
+    cols = (rng.integers(0, FRAME_W * FRAME_H, n).astype(np.int32),
+            rng.integers(0, 0x3F800001, n).astype(np.int32),
+            rng.integers(1, 1 << 23, n).astype(np.int32))
+    return splat._sort4_frags(*(torch.from_numpy(c).cuda()
+                                for c in cols))[:3]
 
 
 def check_sorted_bucket(torch, splat, sort, entry) -> dict:
@@ -1528,8 +1598,7 @@ def check_sorted_bucket(torch, splat, sort, entry) -> dict:
         raise AssertionError("sorted_merge != plain: max abs err "
                              f"{abs_err(torch, fb_plain, entry['fb_out'])}")
     pix = entry["sorted"][0]
-    first = torch.ones_like(pix, dtype=torch.bool)
-    first[1:] = pix[1:] != pix[:-1]
+    first = run_starts(torch, pix)
     classes, counts = args[10], args[6]
     rows = [min(int(counts[c.cls]), c.rows) for c in classes]
     return {"length": int(pix.shape[0]),
@@ -1668,29 +1737,50 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
     sort_checked.update(lengths)
     big = max(capture.buckets, key=lambda e: e["cols"][0].shape[0])
     big_stats = max(buckets, key=lambda b: b["length"])
+    flush = l2_flush(torch)
     emit_t = time_kernel(
         torch, lambda: splat.emit_fragment_columns(*big["args"]),
         lambda: splat.emit_fragment_columns_reference(*big["args"]),
-        ("emit_fragments_kernel",), plain_reps=3, setup=l2_flush(torch))
-    fb_big = big["fb_in"].clone()
-    merge_t = time_kernel(
-        torch, lambda: splat.sorted_merge(fb_big, *big["sorted"][:3]),
-        lambda: splat.sorted_merge_reference(fb_big, *big["sorted"][:3]),
-        ("sorted_merge_kernel",), plain_reps=3,
-        setup=lambda: fb_big.copy_(big["fb_in"]))
+        "emit_fragments_kernel", plain_reps=3, setup=flush)
+
+    def time_merge(fb0, cols):
+        fb = fb0.clone()
+        return time_kernel(
+            torch, lambda: splat.sorted_merge(fb, *cols),
+            lambda: splat.sorted_merge_reference(fb, *cols),
+            "sorted_merge_kernel", plain_reps=3,
+            setup=lambda: (flush(), fb.copy_(fb0)))
+
+    merge_t = time_merge(big["fb_in"], big["sorted"][:3])
+    dense = dense_merge_list(torch, np, splat)
+    fb_clear = splat.make_framebuffer(FRAME_H, FRAME_W, "cuda").packed
+    fb_k, fb_p = fb_clear.clone(), fb_clear.clone()
+    splat.sorted_merge(fb_k, *dense)
+    splat.sorted_merge_reference(fb_p, *dense)
+    torch.cuda.synchronize()
+    if not torch.equal(fb_k, fb_p):
+        raise AssertionError("sorted_merge != plain on the dense list: max "
+                             f"abs err {abs_err(torch, fb_k, fb_p)}")
+    dense_t = time_merge(fb_clear, dense)
+    dense_winners = int(run_starts(torch, dense[0]).sum())
+    sort_library = sort4_library_ms(torch, big["cols"], big["sorted"],
+                                    reps=3)
     sort_by_n = {}
     for n in sorted(lengths):
         cols = next(e["cols"] for e in capture.buckets
                     if e["cols"][0].shape[0] == n)
         sort_by_n[n] = {
             "ms": device_kernel_ms(torch, lambda: sort.sort4(*cols),
-                                   ("sort4_tile", "sort4_merge")),
+                                   sort4_kernels(n)),
             "wrapper_ms": cuda_ms(lambda: sort.sort4(*cols)),
             "plain_ms": cuda_ms(lambda: sort.sort4_reference(*cols), reps=3),
             "bound_ms": sort4_bound_ms(n)[0]}
     e_bound, e_by = fragments_bound_ms(big_stats["length"], big_stats["rows"],
                                        big_stats["tested"])
-    m_bound, m_by = merge_bound_ms(big_stats["length"], big_stats["winners"])
+    m_bound, m_by = merge_bound_ms(big_stats["lit"], big_stats["length"],
+                                   big_stats["winners"])
+    d_bound = merge_bound_ms(DENSE_MERGE_ROWS, DENSE_MERGE_ROWS,
+                             dense_winners)[0]
     result = {
         "phase": "arms", "ok": True, "width": FRAME_W, "height": FRAME_H,
         "pose": {"yaw": ARM_YAW, "pitch": ARM_PITCH}, "frames": ARM_FRAMES,
@@ -1716,9 +1806,16 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
                  "rows": big_stats["rows"], "tested": big_stats["tested"],
                  "bound_ms": e_bound, "bound_by": e_by},
         "merge": {**merge_t, "length": big_stats["length"],
+                  "valid_rows": big_stats["lit"],
                   "winners": big_stats["winners"], "bound_ms": m_bound,
-                  "bound_by": m_by},
+                  "bound_by": m_by, "dense_rows": DENSE_MERGE_ROWS,
+                  "dense_winners": dense_winners, "dense_bound_ms": d_bound,
+                  "dense_ms": dense_t["ms"],
+                  "dense_ms_runs": dense_t["ms_runs"],
+                  "dense_wrapper_ms": dense_t["wrapper_ms"],
+                  "dense_plain_ms": dense_t["plain_ms"]},
         "sort_by_n": sort_by_n,
+        "sort_library_ms": {big_stats["length"]: sort_library},
     }
 
 
@@ -2178,6 +2275,7 @@ def main() -> int:
     if pulled:
         raise AssertionError(f"the port pulled in {pulled[:5]}")
 
+    emit({"phase": "profiler", "spans_seen_of_launched": profile_spans})
     emit({"phase": "raster_bound", **{k: framed["raster"][k] for k in (
         "rows", "touched_pixels", "tested_fragments", "fragments", "sms",
         "sm_clock_mhz_under_load", "bytes_bound_ms", "instr_bound_ms",
@@ -2218,8 +2316,12 @@ def main() -> int:
         "wrapper_ms": statistics.median(kernel["sort_ms_by_n"][main_n]),
         "plain_ms": statistics.median(kernel["plain_ms_by_n"][main_n]),
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_memory": "HBM",
-        # no single PyTorch call sorts four i32 columns lexicographically
-        "library_ms": None,
+        # torch.unique(torch.stack(cols, 1), dim=0) on the same columns:
+        # every row is unique (the arrival iota), so it returns sort4's
+        # output as rows (checked equal); the port never calls it
+        "library_ms": kernel["library_ms"],
+        "library_ms_by_n": {main_n: kernel["library_ms"],
+                            **armed["sort_library_ms"]},
         "n": main_n,
         "launches_by_path": {
             "--device-native": {"launches": sliced["sort4_launches"],
@@ -2312,13 +2414,17 @@ def main() -> int:
         "ms": merge_k["ms"], "wrapper_ms": merge_k["wrapper_ms"],
         "plain_ms": merge_k["plain_ms"], "bound_ms": merge_k["bound_ms"],
         "bound_by": merge_k["bound_by"], "bound_memory": "HBM",
+        "timed_from": "a flushed L2",
         "launches_by_path": {"arms": arm_launches["sorted_merge"]},
         # scatter_reduce_(..., "amin") over the winners is only the plain
         # version's last step, not the same function
         "library_ms": None,
-        "length": merge_k["length"], "winners": merge_k["winners"],
-        "ms_runs": merge_k["ms_runs"], "plain_ms_runs": merge_k["plain_ms_runs"],
-        "unit": "one launch on the sorted frame's largest bucket",
+        **{k: merge_k[k] for k in (
+            "length", "valid_rows", "winners", "ms_runs", "plain_ms_runs",
+            "dense_rows", "dense_winners", "dense_bound_ms", "dense_ms",
+            "dense_ms_runs", "dense_wrapper_ms", "dense_plain_ms")},
+        "unit": "one launch on the sorted frame's largest bucket; bound_ms "
+                "counts its rows up to the _NO_ID tail",
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -881,7 +881,12 @@ def sorted_merge(fb, pix, depth_bits, ids):
     """K4: :func:`sorted_merge_reference`'s merge, one launch of
     ``csrc/sorted_merge.cu`` on a CUDA tensor (no fallback); on a CPU
     tensor the plain version. One winner falls on a pixel in a merge, so
-    the kernel's minimum needs no atomic."""
+    the kernel's minimum needs no atomic.
+
+    Precondition: the columns are ``sort4``'s output, ascending by pixel,
+    so every ``_NO_ID`` row lies in one tail at the end. The kernel stops
+    reading where that tail begins; on columns not so sorted its plane
+    may differ from the plain version's."""
     global merge_launches
     dev = fb.device
     if dev.type == "cpu":

@@ -401,7 +401,98 @@ def test_sorted_merge_twin_edge_cases():
         assert int(fb[0]) == (100 << 32) | 1
 
 
+def sorted_rows(pix, bits, fid):
+    """The columns as ``sort4`` orders them (its plain version), on the
+    CPU: pixel, depth bits, id, arrival."""
+    arrival = np.arange(len(pix), dtype=np.int32)
+    return tsort.sort4_reference(*(as_t(c) for c in (pix, bits, fid,
+                                                     arrival)))
+
+
+def tail_list(case):
+    """A fragment list of 4096 rows with a ``_NO_ID`` tail: ``fragments``
+    as K3 lays a bucket out (``fragment_list``'s rows, a fifth invalid);
+    ``off_plane`` adds negative pixels and pixels past the plane."""
+    pix, depth, fid, prior, (h, w) = fragment_list(7, n=4096)
+    if case == "off_plane":
+        rng = np.random.default_rng(8)
+        pix[rng.random(len(pix)) < 0.1] = -rng.integers(1, 50)
+        pix[rng.random(len(pix)) < 0.1] = h * w + rng.integers(0, 50)
+    cols = tsplat.fragment_columns(as_t(pix), as_t(depth), as_t(fid))
+    return tuple(c.numpy() for c in cols[:3]), prior
+
+
+@pytest.mark.parametrize("case", ["fragments", "off_plane"])
+def test_sorted_merge_needs_no_row_of_the_tail(case):
+    """The precondition K4's stop rests on: on sort4's output every
+    _NO_ID row lies in one tail at the end, and merging the rows up to
+    the first of them leaves the plane that merging every row does."""
+    (pix, bits, fid), prior = tail_list(case)
+    cols = sorted_rows(pix, bits, fid)[:3]
+    spix = cols[0].numpy()
+    first = int(np.argmax(spix == NO_ID))
+    assert 0 < first < len(spix) and (spix[first:] == NO_ID).all()
+    assert (spix[:first] != NO_ID).all()
+    if case == "off_plane":
+        assert (spix[:first] < 0).any() and (spix[:first] >= len(prior)).any()
+    fb_all, fb_prefix = prior.clone(), prior.clone()
+    tsplat.sorted_merge_reference(fb_all, *cols)
+    tsplat.sorted_merge_reference(fb_prefix, *(c[:first] for c in cols))
+    assert torch.equal(fb_all, fb_prefix)
+    assert (fb_all != prior).sum() > 50
+
+
 # --- the kernels on the card ----------------------------------------------
+
+N_PIX = 1280 * 720
+CHUNK_LCM = 1536  # a multiple of every warp chunk K4 may take (128 x 2..4)
+
+
+def merge_case(case):
+    """K4's inputs for one case: (pix, bits, ids) before the sort, the
+    plane's length, whether the plane already holds words, and the rows
+    sliced off the sorted columns' front."""
+    rng = np.random.default_rng(MERGE_CASES.index(case))
+    n, offset, prior = 1 << 20, 0, True
+    if case.startswith("n="):
+        n = {"n=1": 1, "n=3": 3, "n=2^20+3": (1 << 20) + 3}[case]
+    elif case == "runs":
+        n = (1 << 21) + 5
+    pix = rng.integers(0, N_PIX, n).astype(np.int32)
+    if case == "all_no_id":
+        pix[:] = NO_ID
+    elif case == "runs":
+        # short runs across vector (4-row) bounds in the first half; runs
+        # of 128 rows from row 64 on, so each crosses a lane, and so every
+        # warp chunk and block stride, bound; one run of 5000 rows
+        half = n // 2
+        pix[:half] = np.arange(half) // 3
+        pix[half:] = pix[half - 1] + 1 + (np.arange(n - half) + 64) // 128
+        pix[half + 9000:half + 14000] = pix[half + 9000]
+    elif case in ("tail_at_chunk", "tail_after_chunk"):
+        pix = np.sort(pix)
+        start = 3 * (1 << 18) + (case == "tail_after_chunk")
+        assert start % CHUNK_LCM == (case == "tail_after_chunk")
+        pix[start:] = NO_ID
+    elif case == "off_plane":
+        for share, low, high in ((0.1, -1000, 0), (0.1, N_PIX, N_PIX + 1000),
+                                 (0.3, NO_ID, NO_ID + 1)):
+            mask = rng.random(n) < share
+            pix[mask] = rng.integers(low, high, int(mask.sum()))
+    elif case == "offset":
+        pix[rng.random(n) < 0.4] = NO_ID
+        offset = 1
+    elif case == "clear_plane":
+        prior = False
+    bits = rng.integers(0, 0x3F800001, n).astype(np.int32)
+    fid = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+    bits[pix == NO_ID] = NO_ID
+    return (pix, bits, fid), N_PIX, prior, offset
+
+
+MERGE_CASES = ("dense", "all_no_id", "n=1", "n=3", "n=2^20+3", "offset",
+               "runs", "tail_at_chunk", "tail_after_chunk", "off_plane",
+               "clear_plane")
 
 
 @pytest.fixture
@@ -468,6 +559,30 @@ class TestFragmentKernelsOnCard:
         assert torch.equal(fb_k, fb_p)
         assert (fb_k != tsplat.make_framebuffer(720, 1280, cuda_device)
                 .packed).sum() > 100_000
+
+    @pytest.mark.parametrize("case", MERGE_CASES)
+    def test_merge_kernel_cases(self, cuda_device, case):
+        """K4 against its plain twin where its vector loads, run starts
+        from registers and stop at the _NO_ID tail could part from it: a
+        dense list, an all-_NO_ID list, 1, 3 and 2^20 + 3 rows, columns
+        4 B past a 16-byte boundary (a [1:] view), runs across vectors,
+        lanes, chunks and strides, the tail at a chunk boundary and one
+        row past it, pixels off the plane before the tail, a plane that
+        holds words (every case but ``clear_plane``)."""
+        cols, n_pix, prior, offset = merge_case(case)
+        cols = [c.to(cuda_device)[offset:] for c in sorted_rows(*cols)[:3]]
+        if case == "offset":
+            assert cols[0].data_ptr() % 16 == 4
+        fb = tsplat.make_framebuffer(1, n_pix, cuda_device).packed
+        if prior:
+            fb[::3] = (0x3F000000 << 32) | 5
+        fb_p = fb.clone()
+        before = tsplat.merge_launches
+        tsplat.sorted_merge(fb, *cols)
+        tsplat.sorted_merge_reference(fb_p, *cols)
+        torch.cuda.synchronize()
+        assert tsplat.merge_launches == before + 1
+        assert torch.equal(fb, fb_p)
 
     @pytest.mark.parametrize("log_n", [21, 22, 23, 24, 25, 26])
     def test_sort4_at_fragment_lengths(self, cuda_device, log_n):
