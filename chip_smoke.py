@@ -50,8 +50,9 @@ use. Imports no JAX. Phases, one JSON line each:
    the static files, four orbit poses and one fly pose, eight timed
    ``/render`` after a warm one (median and spread in ms; one more
    request's device busy share and host profile, without HTTP), footprint 1
-   (every bucket of that frame captured and K1 and K2 held bit-exact
-   against their plain versions on it), the in-app converter on a
+   (the multi-dispatch arm, as in the reference: every K1 and K2 call of
+   that frame captured and held bit-exact against the plain versions on
+   its inputs), the in-app converter on a
    2^18-point PLY (the store it writes must validate clean) and a PLY
    ``/export`` (its vertex count must equal the store's). Every PNG must
    be byte-identical to the one ``StoreServer(..., device="cpu")`` makes
@@ -82,6 +83,21 @@ use. Imports no JAX. Phases, one JSON line each:
    coordinator: rank 0's merged store holds the point multiset of one
    ``--device-native`` conversion of the four files. Four shards on one
    card run one after another: no number here is a scaling measurement.
+9. footprints: the store at 1280x720 from phase 7's pose at footprints
+   29, 31, 64, 128 and 129 (ladders of 31 to 129 rungs, tables of 33 to
+   129 segments, a 129-px window), default settings, from zero launch
+   counts: every bucket's K1 and K2 bit-exact against their plain
+   versions, the frame equal to the CPU renderer's at 29 and 129, device
+   ms a frame and K1's and K2's device time on the largest bucket against
+   their bounds at 29, 64 and 129; the multi-dispatch, budget, sorted and
+   fusion arms at 64 and 129 (steady frames within phase 7's groups, the
+   sorted arm's K3, sort4 and K4 bit-exact on every bucket, every K1 and
+   K2 call of the multi-dispatch arm's last frame bit-exact, and at 129
+   K2's device time on that frame's widest class raster against its
+   bound); the mesh at 129 on four logical shards bit-equal to the
+   single-device plain arm.
+   ``python3 chip_smoke.py --phase footprints`` runs this phase alone on
+   a ``--native`` store of phase 4's cloud.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels' JSON
 line, and the last line ``{"ok": true, "device": {...}}``. In the
@@ -109,6 +125,7 @@ The script imports nothing of ``jax``, of ``point_cloud_tpu`` or of
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -182,30 +199,45 @@ def cuda_ms(fn, reps: int = 7, setup=None) -> float:
 
 
 PROFILE_TRIES = 3
+# fragments a chunk of the checks' plain K2 expansions (the reference's
+# chunks hold 2^16: 8 rows of a 129-px window); the plane is a minimum,
+# so it does not depend on the chunking
+PLAIN_CHUNK_FRAGMENTS = 1 << 24
+PROFILE_LEAD_S = 0.05  # calls in the profiler's warm-up step
 profile_spans: list = []  # per profile: {kernel: [spans seen, launched]}
 
 
 def device_kernel_ms(torch, fn, per_call: dict, reps: int = 20) -> float:
     """Device time a call of ``fn`` spends in its kernels: ``per_call``
     maps a name that a kernel's name holds to how many such kernels a
-    call launches. ``fn()`` runs ``reps`` times under torch.profiler; the
-    time is, summed over the names, the mean span of that name's kernels
-    times their count a call. The wrapper's host work and any other
-    device work in ``fn`` are left out. The profiler drops kernels: 3 of
-    20 and 6 of 25 in every profile of two smoke runs on the H100, and
-    once a whole profile's. A mean over the kernels it kept is unbiased
-    by that where a sum over ``reps`` is not; a profile that kept fewer
-    than half of some name's kernels is taken again, up to PROFILE_TRIES
-    profiles, and raises after that. ``profile_spans`` keeps what each
-    profile saw."""
-    from torch.profiler import ProfilerActivity, profile
+    call launches. ``fn()`` runs for PROFILE_LEAD_S in the profiler's
+    warm-up step, whose events the profiler discards, then ``reps`` times
+    in its one recorded step; the time is, summed over the names, the
+    mean span of that name's kernels in the recorded step times their
+    count a call. The wrapper's host work and any other device work in
+    ``fn`` are left out. The profiler drops kernels, most at the start of
+    a profile late in a long process (0-7 of 20 short kernels kept in some
+    of phase 9's profiles on the H100; a profile of the same calls taken
+    again kept all 20): the warm-up step starts its tracing before the
+    counted calls, and a mean over the kernels it kept is unbiased by the
+    ones it dropped where a sum over ``reps`` is not. A profile whose
+    recorded step kept fewer kernels of some name than half of what the
+    ``reps`` calls launch is taken again, up to PROFILE_TRIES profiles,
+    and raises after that. ``profile_spans`` keeps what each recorded
+    step saw."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     warm_clock(torch)
     fn()  # warm-up
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            lead_end = time.perf_counter() + PROFILE_LEAD_S
+            while time.perf_counter() < lead_end:
+                fn()
+                torch.cuda.synchronize()
+            prof.step()  # the warm-up step ends: only what follows counts
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -217,6 +249,11 @@ def device_kernel_ms(torch, fn, per_call: dict, reps: int = 20) -> float:
                         spans[name].append(e.time_range.elapsed_us())
         profile_spans.append({name: [len(spans[name]), reps * count]
                               for name, count in per_call.items()})
+        if any(len(spans[name]) > reps * count
+               for name, count in per_call.items()):
+            raise AssertionError(f"the recorded step holds more kernels of "
+                                 f"{per_call} than {reps} calls launch: "
+                                 f"{profile_spans[-1]}")
         if all(2 * len(spans[name]) >= reps * count
                for name, count in per_call.items()):
             return sum(statistics.fmean(spans[name]) * count
@@ -622,6 +659,87 @@ def check_bucket(torch, splat, kernel, fb_in, args, kw) -> dict:
             "cull_err": cull_err, "raster_err": raster_err}
 
 
+def plain_raster(splat):
+    """``splat.splat_raster_reference`` with chunks of at least
+    PLAIN_CHUNK_FRAGMENTS fragments: the plain version of K2 a check runs
+    (a ``raster`` of ``splat_raster_segments_reference``)."""
+    def raster(*args):
+        *head, k, voronoi, chunk_rows = args
+        return splat.splat_raster_reference(
+            *head, k, voronoi,
+            max(chunk_rows, PLAIN_CHUNK_FRAGMENTS // (k * k)))
+    return raster
+
+
+class KernelCapture:
+    """Wraps K1's and K2's wrappers (``kernel.cull_classify``,
+    ``splat.splat_raster_segments``) while it is installed: every call's
+    arguments, and K2's input plane, kept for :meth:`check` after the run.
+    The wrappers count nothing of the kernels: the kernels' own wrappers
+    do."""
+
+    def __init__(self, kernel, splat):
+        self.kernel, self.splat = kernel, splat
+        self.real = (kernel.cull_classify, splat.splat_raster_segments)
+        self.culls, self.rasters = [], []
+
+    def __enter__(self):
+        cull, raster = self.real
+
+        def cull_wrap(*args, **kw):
+            self.culls.append((args, kw))
+            return cull(*args, **kw)
+
+        def raster_wrap(fb, *args):
+            self.rasters.append((fb.clone(), args))
+            return raster(fb, *args)
+
+        self.kernel.cull_classify = cull_wrap
+        self.splat.splat_raster_segments = raster_wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.cull_classify, self.splat.splat_raster_segments = self.real
+
+    def check(self, torch) -> dict:
+        """K1 and K2 against their plain versions on the card, on every
+        captured call's inputs: every K1 output and every plane bit for
+        bit. The largest differences go into ``cull_err`` and
+        ``raster_err``."""
+        cull, raster = self.real
+        cull_err = raster_err = 0.0
+        for args, kw in self.culls:
+            got = cull(*args, **kw)
+            ref = self.kernel.cull_classify_reference(*args, **kw)
+            err = max(abs_err(torch, g, r) for g, r in zip(got, ref))
+            cull_err = max(cull_err, err)
+            if not all(same_bits(torch, g, r) for g, r in zip(got, ref)):
+                raise AssertionError(f"cull_classify != plain: max abs err "
+                                     f"{err}")
+        for fb_in, args in self.rasters:
+            fb_k, fb_p = fb_in.clone(), fb_in.clone()
+            raster(fb_k, *args)
+            self.splat.splat_raster_segments_reference(
+                fb_p, *args, raster=plain_raster(self.splat))
+            torch.cuda.synchronize()
+            got = self.splat.Framebuffer(fb_k)
+            ref = self.splat.Framebuffer(fb_p)
+            err = max(abs_err(torch, got.depth, ref.depth),
+                      abs_err(torch, got.point_id, ref.point_id))
+            raster_err = max(raster_err, err)
+            if not torch.equal(fb_k, fb_p):
+                raise AssertionError(f"splat_raster != plain: max abs err "
+                                     f"{err}")
+        return {"k1_calls": len(self.culls), "k2_calls": len(self.rasters),
+                "cull_err": cull_err, "raster_err": raster_err}
+
+
+def call_rows(splat, args) -> int:
+    """Rows a captured K2 call draws (reads its counts)."""
+    return sum(int(splat.segment_bounds(seg, args[5], args[6])[1])
+               for seg in args[10])
+
+
 def raster_inputs(splat, kernel, fb_in, args, kw):
     """The raster stage's inputs for a bucket: K1's outputs and the rung
     ranking, computed once."""
@@ -668,13 +786,39 @@ def lit_fragments(torch, splat, inp) -> tuple[int, int]:
     """The fragments the bucket's rung rasters light (inside the circle,
     on screen, depth in [0, 1]) and the distinct pixels they land on,
     counted with the plain expansion."""
+    return count_lit(torch, splat, inp["height"] * inp["width"],
+                     inp["perm"].device,
+                     lambda count: run_rungs(splat, inp["perm"], inp, count))
+
+
+def call_lit_fragments(torch, splat, args) -> tuple[int, int]:
+    """:func:`lit_fragments` of one captured K2 call (the arguments of
+    ``splat_raster_segments`` after the plane)."""
+    return count_lit(
+        torch, splat, args[8] * args[9], args[4].device,
+        lambda count: splat.splat_raster_segments_reference(
+            args[4], *args, raster=count))
+
+
+def call_tested_fragments(splat, args) -> int:
+    """count * k * k summed over a captured K2 call's segments."""
+    offsets, counts, segments = args[5], args[6], args[10]
+    return sum(seg.k * seg.k
+               * int(splat.segment_bounds(seg, offsets, counts)[1])
+               for seg in segments)
+
+
+def count_lit(torch, splat, pixels: int, device, run) -> tuple[int, int]:
+    """Lit fragments and distinct pixels of the rasters ``run(raster)``
+    hands to ``raster`` (the plain raster's signature; it writes
+    nothing)."""
     total = [0]
-    touched = torch.zeros(inp["height"] * inp["width"], dtype=torch.bool,
-                          device=inp["perm"].device)
+    touched = torch.zeros(pixels, dtype=torch.bool, device=device)
 
     def count(fb, vp, ndc, radius, pid, perm, start, cnt, proj, h, w, k,
               voronoi, chunk_rows):
         s, c = int(start[0]), int(cnt[0])
+        chunk_rows = max(chunk_rows, PLAIN_CHUNK_FRAGMENTS // (k * k))
         for c0 in range(0, c, chunk_rows):
             rows = perm[s + c0 : s + min(c0 + chunk_rows, c)].long()
             idx, _, valid = splat.fragments(vp[rows], ndc[rows], radius[rows],
@@ -683,7 +827,7 @@ def lit_fragments(torch, splat, inp) -> tuple[int, int]:
             touched[idx[valid]] = True
         return fb
 
-    run_rungs(splat, inp["perm"], inp, count)  # count() writes nothing
+    run(count)
     return total[0], int(touched.sum())
 
 
@@ -733,10 +877,10 @@ def raster_instr_bound_ms(tested: int, lit: int, sms: int,
 def segment_rows(splat, inp) -> list:
     """(segment, its row count) for each of the bucket's segments (reads
     the counts)."""
-    segs, counts, offsets = splat.raster_table(
-        inp["rungs"], inp["footprint"], inp["view_pos"].shape[0],
-        inp["counts"], inp["offsets"])
-    return [(seg, int(splat.segment_bounds(seg, offsets, counts)[1]))
+    segs = splat.bucket_segments(inp["rungs"], inp["footprint"],
+                                 inp["view_pos"].shape[0])
+    return [(seg, int(splat.segment_bounds(seg, inp["offsets"],
+                                           inp["counts"])[1]))
             for seg in segs]
 
 
@@ -1216,13 +1360,7 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
     n_points = json.loads(meta_bytes)["number_of_points"]
     cell = sorted((store / "h_0").iterdir())[0]
 
-    captured = []
-    bucket_pass = splat.render_bucket_pass
-
-    def capture(framebuffer, *args, **kw):
-        captured.append((framebuffer.packed.clone(), args, kw))
-        return bucket_pass(framebuffer, *args, **kw)
-
+    fp1 = KernelCapture(kernel, splat)
     # the main path's run: every count starts at 0 here
     kernel.launches = splat.launches = 0
     httpd = serve(store, host="127.0.0.1", port=0, convert_root=root)
@@ -1266,19 +1404,19 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
         profiled["host_cumulative_ms"] = host_profile(
             lambda: server.render_png(yaw=0.5, pitch=-0.4))
         points_loaded = server.viewer.stats()["points"]["loaded"]
-        # footprint 1, its buckets captured
+        # footprint 1 (the multi-dispatch arm: K1, then K2 on the kept
+        # rows, a bucket), its K1 and K2 calls captured
         if http_json(f"{url}/settings", {"footprint": 1})["footprint"] != 1:
             raise AssertionError("footprint 1 not applied")
-        splat.render_bucket_pass = capture
-        try:
+        with fp1:
             png_fp1 = http(f"{url}/render?{SERVE_POSES[0]}")[2]
-        finally:
-            splat.render_bucket_pass = bucket_pass
         http_json(f"{url}/settings", {"footprint": 5})
         lit_fp1 = lit_pixels(np, png_fp1)
-        if not captured or not 0 < lit_fp1 < lit[0]:
-            raise AssertionError(f"footprint 1: {len(captured)} buckets, "
-                                 f"{lit_fp1} lit pixels against {lit[0]}")
+        if (not fp1.rasters or len(fp1.culls) != len(fp1.rasters)
+                or not 0 < lit_fp1 < lit[0]):
+            raise AssertionError(f"footprint 1: {len(fp1.culls)} K1 and "
+                                 f"{len(fp1.rasters)} K2 calls, {lit_fp1} "
+                                 f"lit pixels against {lit[0]}")
         # export of the served store
         t0 = time.perf_counter()
         status, headers, body = http(f"{url}/export?format=ply")
@@ -1337,6 +1475,9 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
                        if "px" in args else None)
             if cpu.render_png(eye=eye_arg, **args) != png:
                 raise AssertionError(f"/render?{q}: cuda PNG != cpu PNG")
+        # the card's last frame before footprint 1: the multi-dispatch
+        # arm sizes its budgets from the frame before
+        cpu.render_png(yaw=0.5, pitch=-0.4)
         cpu.apply_settings({"footprint": 1})
         if cpu.render_png(yaw=0.5, pitch=-0.4) != png_fp1:
             raise AssertionError("footprint 1: cuda PNG != cpu PNG")
@@ -1345,22 +1486,20 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
     cpu_s = time.perf_counter() - t0
 
     # K1 and K2 against their plain versions on every footprint-1 bucket
-    buckets = [check_bucket(torch, splat, kernel, *entry)
-               for entry in captured]
-    big = max(captured, key=lambda e: int(e[1][2].sum()))
-    inp = raster_inputs(splat, kernel, *big)
+    fp1_check = fp1.check(torch)
+    big = max(fp1.rasters, key=lambda e: call_rows(splat, e[1]))
     fb_big = big[0].clone()
     fp1_ms = device_kernel_ms(
-        torch, lambda: (fb_big.copy_(big[0]),
-                        run_rungs(splat, fb_big, inp, None)),
+        torch, lambda: (fb_big.copy_(big[0]), fp1.real[1](fb_big, *big[1])),
         {"splat_raster_kernel": 1})
-    frags, touched = lit_fragments(torch, splat, inp)
+    frags, touched = call_lit_fragments(torch, splat, big[1])
+    rows = call_rows(splat, big[1])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     fp1_bound = {
-        "rows": inp["kept"], "fragments": frags, "touched_pixels": touched,
-        "bytes_bound_ms": raster_bound_ms(inp["kept"], touched),
-        "instr_bound_ms": raster_instr_bound_ms(inp["kept"], frags, sms,
-                                                clock_mhz)}
+        "rows": rows, "fragments": frags, "touched_pixels": touched,
+        "bytes_bound_ms": raster_bound_ms(rows, touched),
+        "instr_bound_ms": raster_instr_bound_ms(
+            call_tested_fragments(splat, big[1]), frags, sms, clock_mhz)}
     window = phase_window(torch, np, store)
     result = {
         "phase": "serve", "ok": True, "nvidia_smi": smi,
@@ -1370,7 +1509,7 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
         "render_ms_median": statistics.median(render_ms),
         "render_ms_min": min(render_ms), "render_ms_max": max(render_ms),
         "points_loaded": points_loaded, "profiled_render": profiled,
-        "footprint1": {"lit_pixels": lit_fp1, "buckets": buckets,
+        "footprint1": {"lit_pixels": lit_fp1, **fp1_check,
                        "largest_bucket_k2_ms": fp1_ms, **fp1_bound},
         "export_s": export_s, "export_vertices": vertices,
         "convert_s": convert_s, "convert_points": CONVERT_POINTS,
@@ -2221,9 +2360,383 @@ def phase_multihost(np, tmp: Path, sort_checked: set) -> dict:
     return result
 
 
-def main() -> int:
+# --- phase 9: every footprint -------------------------------------------------
+
+# default settings at each; 29 and 31 were the first footprints the old
+# K2 (32 segments a launch) and K1 (32 rungs) refused, 129 the first
+# window past 128 px
+FOOTPRINTS = (29, 31, 64, 128, 129)
+FOOTPRINT_TIMED = (29, 64, 129)  # device ms a frame, K1 and K2 timed
+FOOTPRINT_CPU = (29, 129)  # the card's frame against the CPU renderer's
+FOOTPRINT_ARMS_AT = (64, 129)
+# the other arms at FOOTPRINT_ARMS_AT; the sorted arm classes every splat
+# (with classing "auto", once one splat overflows the footprint, the
+# footprint class takes every kept row at k * k slots: at 64 px a bucket
+# of more than 524,288 kept rows passes the 2^31 slots of a launch)
+FOOTPRINT_ARMS = {
+    "multi_dispatch": dict(megakernel=False),
+    "budget": dict(chunked_raster=False),
+    "sorted": dict(raster_mode="sorted", classing=True),
+    "fusion": dict(frame_fusion=True),
+}
+# steady frames equal within a group, phase 7's: the capped chunked
+# megakernel's, and the uncapped ladders' (which equal it where no
+# overflow rung passes its cap)
+FOOTPRINT_GROUPS = {"default": ("fusion",),
+                    "multi_dispatch": ("budget", "sorted")}
+FOOTPRINT_MESH_AT = 129
+# K2 timed on the multi-dispatch arm's widest class raster at this one
+FOOTPRINT_WIDE_TIMED = 129
+
+
+def widest_call(splat, rasters):
+    """Of captured K2 calls (:class:`KernelCapture`), the one whose
+    widest window draws rows, the most rows among those: a class raster
+    of the multi-dispatch arm."""
+    def key(entry):
+        args = entry[1]
+        drawn = [seg.k for seg in args[10]
+                 if int(splat.segment_bounds(seg, args[5], args[6])[1])]
+        return max(drawn, default=0), call_rows(splat, args)
+
+    return max(rasters, key=key)
+
+
+def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
+    """Phase 9: the phase-4 store at 1280x720 from phase 7's pose at every
+    footprint of FOOTPRINTS under default settings, from zero launch
+    counts: every bucket's K1 and K2 bit-exact against their plain
+    versions (:func:`check_bucket`), the frame against the CPU renderer's
+    at FOOTPRINT_CPU, device ms a frame and K1's and K2's device time on
+    the largest bucket against their bounds at FOOTPRINT_TIMED; the other
+    arms at FOOTPRINT_ARMS_AT, steady frames equal within
+    FOOTPRINT_GROUPS and the sorted arm's K3, sort4 and K4 bit-exact on
+    every bucket (every sorted length checked), every K1 and K2 call of
+    the multi-dispatch arm's last frame bit-exact, and at
+    FOOTPRINT_WIDE_TIMED K2's device time on that frame's widest class
+    raster (:func:`widest_call`) against its bound; the mesh frame at
+    FOOTPRINT_MESH_AT on four logical shards bit-equal to the
+    single-device plain arm."""
+    from point_cloud_tpu_torch.ops import sort
+    from point_cloud_tpu_torch.parallel.mesh import make_mesh
+    from point_cloud_tpu_torch.render import kernel, splat
+    from point_cloud_tpu_torch.render.parallel import MeshPointRenderer
+    from point_cloud_tpu_torch.render.renderer import (
+        PointRenderer, RenderSettings,
+    )
+    from point_cloud_tpu_torch.viewer import Viewer
+
+    t_phase = time.perf_counter()
+    viewer = Viewer(RenderSettings(width=FRAME_W, height=FRAME_H),
+                    device="cuda")
+    viewer.load_metadata(store / "metadata.json")
+    arm_pose(viewer)
+    scene = (viewer.streamer, viewer.camera, viewer._frustums)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    coarse_cells = (-(-FRAME_H // kernel.PYRAMID_TILE)
+                    * -(-FRAME_W // kernel.PYRAMID_TILE))
+
+    def settings(fp: int, **arm):
+        return RenderSettings(width=FRAME_W, height=FRAME_H, footprint=fp,
+                              **arm)
+
+    def counts() -> dict:
+        return {"cull_classify": kernel.launches,
+                "splat_raster": splat.launches,
+                "emit_fragments": splat.fragment_launches,
+                "sorted_merge": splat.merge_launches, "sort4": sort.launches}
+
+    # the main path's run: every count starts at 0 here, and only the
+    # frames add to it (:func:`driven`), not the checks and timings
+    kernel.launches = splat.launches = 0
+    splat.fragment_launches = splat.merge_launches = 0
+    sort.launches = 0
+    sort.launches_by_n.clear()
+    launches = dict.fromkeys(counts(), 0)
+    by_n: dict = {}
+
+    def driven(fn):
+        """``fn()``, a frame of the main path; its launches added to the
+        phase's counts."""
+        before, before_n = counts(), dict(sort.launches_by_n)
+        out = fn()
+        for name, count in counts().items():
+            launches[name] += count - before[name]
+        for n, count in sort.launches_by_n.items():
+            if count > before_n.get(n, 0):
+                by_n[n] = by_n.get(n, 0) + count - before_n.get(n, 0)
+        return out
+
+    sorted_capture = SortedCapture(splat)
+    by_fp, checked, sorted_buckets, call_checks = {}, [], [], []
+    for fp in FOOTPRINTS:
+        renderer = PointRenderer(viewer.metadata, settings(fp), device="cuda")
+        captured = []
+        bucket_pass = splat.render_bucket_pass
+
+        def capture(framebuffer, *args, **kw):
+            captured.append((framebuffer.packed.clone(), args, kw))
+            return bucket_pass(framebuffer, *args, **kw)
+
+        splat.render_bucket_pass = capture
+        try:
+            t0 = time.perf_counter()
+            first = frame_planes(renderer,
+                                 driven(lambda: renderer.render(*scene)))
+            ms = [(time.perf_counter() - t0) * 1e3]
+        finally:
+            splat.render_bucket_pass = bucket_pass
+        t0 = time.perf_counter()
+        driven(lambda: renderer.render(*scene))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if first[3]["points_visible"] <= 0 or not captured:
+            raise AssertionError(f"footprint {fp}: nothing rendered")
+        buckets = [check_bucket(torch, splat, kernel, *e) for e in captured]
+        checked += buckets
+        kw = captured[0][2]
+        rungs = tuple(kw["sub_ks"]) + (fp,) + tuple(kw["overflow_ks"])
+        entry = {
+            "rungs": len(rungs), "largest_window": max(rungs),
+            "segments_a_bucket": [len(splat.bucket_segments(
+                rungs, fp, e[1][0].shape[0])) for e in captured],
+            "buckets": len(captured), "frame_ms": ms,
+            "points_visible": first[3]["points_visible"],
+            "lit_pixels": int((first[2] != int(splat._NO_ID)).sum()),
+            "bucket_checks": buckets}
+        if fp in FOOTPRINT_TIMED:
+            busy = busy_share(torch, lambda: renderer.render(*scene))
+            big = max(captured, key=lambda e: e[1][0].shape[0])
+            cargs, ckw = cull_inputs(splat, kernel, *big)
+            flush = l2_flush(torch)
+            k1_ms = device_kernel_ms(
+                torch, lambda: (flush(), kernel.cull_classify(*cargs, **ckw)),
+                {"cull_classify_kernel": 1})
+            inp = raster_inputs(splat, kernel, *big)
+            fb_big = big[0].clone()
+
+            def k2():
+                return run_rungs(splat, fb_big, inp, None)
+
+            k2_ms = device_kernel_ms(
+                torch, lambda: (fb_big.copy_(big[0]), k2()),
+                {"splat_raster_kernel": 1})
+            frags, touched = lit_fragments(torch, splat, inp)
+            clock_mhz = sm_clock_under_load(torch, k2)
+            bytes_ms = raster_bound_ms(inp["kept"], touched)
+            instr_ms = raster_instr_bound_ms(tested_fragments(splat, inp),
+                                             frags, sms, clock_mhz)
+            ndc = inp["ndc"]
+            inside = int(((ndc[:, 0].abs() <= 1.0) & (ndc[:, 1].abs() <= 1.0)
+                          & ((ndc[:, 2] - 0.5).abs() <= 0.5)
+                          & big[1][2]).sum())
+            entry.update(
+                device_ms_a_frame=busy["device_ms"],
+                busy_share=busy["busy_share"],
+                top_device_ms=busy["top_device_ms"],
+                largest_bucket_n=int(big[1][0].shape[0]),
+                k1_ms=k1_ms, k1_bound_ms=cull_bound_ms(
+                    int(big[1][0].shape[0]), inside,
+                    big[2]["use_occlusion"], big[2]["use_pyramid"],
+                    FRAME_H * FRAME_W, coarse_cells),
+                k2_ms=k2_ms, k2_rows=inp["kept"], k2_fragments=frags,
+                k2_tested_fragments=tested_fragments(splat, inp),
+                k2_touched_pixels=touched, sm_clock_mhz_under_load=clock_mhz,
+                k2_bytes_bound_ms=bytes_ms, k2_instr_bound_ms=instr_ms,
+                k2_bound_ms=max(bytes_ms, instr_ms),
+                k2_bound_by="bytes" if bytes_ms >= instr_ms else "operations")
+        if fp in FOOTPRINT_CPU:
+            t0 = time.perf_counter()
+            cpu = PointRenderer(viewer.metadata, settings(fp), device="cpu")
+            if not same_frame(np, torch, first,
+                              frame_planes(cpu, cpu.render(*scene))):
+                raise AssertionError(f"footprint {fp}: cuda frame != cpu")
+            entry["cpu_frame_s"] = time.perf_counter() - t0
+        if fp in FOOTPRINT_ARMS_AT:
+            frames = {"default": first}
+            arm_ms = {}
+            big_sorted = None  # (its check, K3's arguments)
+            for name, arm in FOOTPRINT_ARMS.items():
+                r = PointRenderer(viewer.metadata, settings(fp, **arm),
+                                  device="cuda")
+                arm_ms[name] = []
+                calls = KernelCapture(kernel, splat)
+                for i in range(ARM_FRAMES):
+                    # the multi-dispatch arm's last frame: every K1 and K2
+                    # call kept for the check below
+                    last_md = name == "multi_dispatch" and i == ARM_FRAMES - 1
+                    t0 = time.perf_counter()
+                    with sorted_capture, (calls if last_md
+                                          else contextlib.nullcontext()):
+                        out = driven(lambda: r.render(*scene))
+                    arm_ms[name].append((time.perf_counter() - t0) * 1e3)
+                    # K3, sort4 and K4 on every bucket sorted (plain
+                    # versions only: no launch), then let it go
+                    for e in sorted_capture.buckets:
+                        sorted_buckets.append(check_sorted_bucket(
+                            torch, splat, sort, e))
+                        if (big_sorted is None or sorted_buckets[-1]["length"]
+                                > big_sorted[0]["length"]):
+                            big_sorted = (sorted_buckets[-1], e["args"])
+                    sorted_capture.buckets.clear()
+                frames[name] = frame_planes(r, out)
+                if calls.rasters:
+                    entry["multi_dispatch_calls"] = calls.check(torch)
+                    call_checks.append(entry["multi_dispatch_calls"])
+                if calls.rasters and fp == FOOTPRINT_WIDE_TIMED:
+                    wide = widest_call(splat, calls.rasters)
+                    fb_wide = wide[0].clone()
+
+                    def wide_k2():
+                        return calls.real[1](fb_wide, *wide[1])
+
+                    def wide_reset():
+                        fb_wide.copy_(wide[0])
+
+                    wide_ms = device_kernel_ms(
+                        torch, lambda: (wide_reset(), wide_k2()),
+                        {"splat_raster_kernel": 1})
+                    # the wrapper's event time and the clock under this
+                    # launch's own load: its bound is counted at that clock
+                    wide_event_ms = cuda_ms(wide_k2, setup=wide_reset)
+                    wide_clock = sm_clock_under_load(
+                        torch, lambda: (wide_reset(), wide_k2()))
+                    rows = call_rows(splat, wide[1])
+                    frags, touched = call_lit_fragments(torch, splat, wide[1])
+                    tested = call_tested_fragments(splat, wide[1])
+                    bytes_ms = raster_bound_ms(rows, touched)
+                    instr_ms = raster_instr_bound_ms(tested, frags, sms,
+                                                     wide_clock)
+                    entry["multi_dispatch_wide_k2"] = {
+                        "window": max(seg.k for seg in wide[1][10]),
+                        "rows": rows, "ms": wide_ms,
+                        "wrapper_ms": wide_event_ms,
+                        "sm_clock_mhz_under_load": wide_clock,
+                        "fragments": frags,
+                        "tested_fragments": tested, "touched_pixels": touched,
+                        "bytes_bound_ms": bytes_ms, "instr_bound_ms": instr_ms,
+                        "bound_ms": max(bytes_ms, instr_ms),
+                        "bound_by": ("bytes" if bytes_ms >= instr_ms
+                                     else "operations")}
+            if big_sorted is not None:  # K3 on the largest sorted bucket
+                stats, k3_args = big_sorted
+                flush = l2_flush(torch)
+                k3_bound, k3_by = fragments_bound_ms(
+                    stats["length"], stats["rows"], stats["tested"])
+                entry.update(
+                    k3_ms=device_kernel_ms(
+                        torch, lambda: (flush(),
+                                        splat.emit_fragment_columns(*k3_args)),
+                        {"emit_fragments_kernel": 1}),
+                    k3_length=stats["length"], k3_classes=stats["classes"],
+                    k3_bound_ms=k3_bound, k3_bound_by=k3_by)
+            capped = capped_rungs(renderer, scene)
+            groups = dict(FOOTPRINT_GROUPS)
+            if not capped:  # one group: the caps do not bind
+                groups = {"default": ("fusion", "multi_dispatch", "budget",
+                                      "sorted")}
+            for lead, members in groups.items():
+                for name in members:
+                    if not same_frame(np, torch, frames[name],
+                                      frames[lead]):
+                        raise AssertionError(f"footprint {fp}, arm {name}: "
+                                             f"steady frame != {lead}'s")
+            entry.update(arm_frame_ms=arm_ms, capped_rungs=capped,
+                         groups=groups)
+        by_fp[fp] = entry
+        wide_k2 = entry.get("multi_dispatch_wide_k2")
+        print(f"footprint {fp}: {len(rungs)} rungs, "
+              f"{max(entry['segments_a_bucket'])} segments a launch, "
+              f"largest window {max(rungs)}, {len(captured)} buckets, frame "
+              f"{ms[-1]:.1f} ms"
+              + (f", {entry['device_ms_a_frame']:.3f} ms on the card, K2 "
+                 f"{entry['k2_ms']:.4f} ms on the largest bucket against "
+                 f"{entry['k2_bound_ms']:.4f}" if fp in FOOTPRINT_TIMED
+                 else "")
+              + (f", K3 {entry['k3_ms']:.4f} ms at {entry['k3_length']} "
+                 f"slots against {entry['k3_bound_ms']:.4f}"
+                 if "k3_ms" in entry else "")
+              + (f", multi-dispatch K2 {wide_k2['ms']:.4f} ms on its "
+                 f"{wide_k2['window']}-px class raster of {wide_k2['rows']} "
+                 f"rows against {wide_k2['bound_ms']:.4f}" if wide_k2 else ""),
+              flush=True)
+
+    # the mesh at FOOTPRINT_MESH_AT against the single-device plain arm
+    plain = settings(FOOTPRINT_MESH_AT, compact_raster=False,
+                     megakernel=False, classing=False)
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh_r = MeshPointRenderer(viewer.metadata,
+                               make_mesh(devices=[card] * MESH_SHARDS),
+                               settings=plain)
+    t0 = time.perf_counter()
+    mesh_frame = frame_planes(mesh_r, driven(lambda: mesh_r.render(*scene)))
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    single_r = PointRenderer(viewer.metadata, plain, device="cuda")
+    if not same_frame(np, torch, mesh_frame, frame_planes(
+            single_r, driven(lambda: single_r.render(*scene)))):
+        raise AssertionError(f"mesh frame at footprint {FOOTPRINT_MESH_AT} "
+                             "!= the single-device plain arm's")
+    torch.cuda.synchronize()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the footprints did not run every kernel: "
+                             f"{launches}")
+
+    # every length sorted was checked, bucket by bucket, above
+    lengths = {b["length"] for b in sorted_buckets}
+    if set(by_n) - lengths:
+        raise AssertionError(f"lengths {sorted(set(by_n) - lengths)} sorted "
+                             "but not checked")
+    sort_checked.update(lengths)
+    result = {
+        "phase": "footprints", "ok": True, "width": FRAME_W,
+        "height": FRAME_H, "pose": {"yaw": ARM_YAW, "pitch": ARM_PITCH},
+        "footprints": by_fp, "launches": launches, "sort4_launches_by_n": by_n,
+        "sorted_buckets": sorted_buckets,
+        "mesh": {"footprint": FOOTPRINT_MESH_AT, "shards": MESH_SHARDS,
+                 "frame_ms": mesh_ms,
+                 "equals_single_device_plain_arm": True},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    viewer.close()
+    return {"result": result, "by_n": by_n,
+            "cull_err": max(b["cull_err"] for b in checked + call_checks),
+            "raster_err": max(b["raster_err"]
+                              for b in checked + call_checks)}
+
+
+def footprints_alone(torch, np, smi: str) -> int:
+    """``--phase footprints``: phase 4's cloud through the CLI's --native
+    (byte-identical to the --device-native store), then phase 9 on it."""
+    from point_cloud_tpu_torch.core.point import PointBatch
+    from point_cloud_tpu_torch.io.ply import write_ply
+    from point_cloud_tpu_torch.models.synth import synth_cloud
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(3)
+        write_ply(tmp / "cloud.ply", PointBatch(
+            synth_cloud(CLOUD_POINTS, seed=0),
+            rng.integers(0, 256, (CLOUD_POINTS, 4), dtype=np.uint8)))
+        run_cli("--native", tmp / "cloud.ply", tmp / "native")
+        phase_footprints(torch, np, tmp / "native", set())
+    print(smi)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase", choices=["footprints"],
+                    help="run this phase alone, on a store that the CLI's "
+                         "--native writes from phase 4's cloud")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -2257,6 +2770,8 @@ def main() -> int:
         "engine_build_s": time.perf_counter() - t1,
     })
 
+    if args.phase == "footprints":
+        return footprints_alone(torch, np, smi)
     kernel = phase_kernel(torch, np, sort)
     phase_pass(torch, np, dedup, get_pipeline)
     sort_checked = {1 << log_n for log_n in SORT_SIZES}
@@ -2270,6 +2785,8 @@ def main() -> int:
         meshed = phase_mesh_convert(torch, np, tmp, sort_checked)
         mesh_frame = phase_mesh_frame(torch, np, tmp / "device-native")
         multihost = phase_multihost(np, tmp, sort_checked)
+        footprints = phase_footprints(torch, np, tmp / "device-native",
+                                      sort_checked)
     pulled = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "point_cloud_tpu", "bench"))
     if pulled:
@@ -2289,12 +2806,15 @@ def main() -> int:
     frame_launches = framed["frame"]["launches"]
     cull, raster = framed["cull"], framed["raster"]
     arm_launches = armed["result"]["launches"]
+    fp_launches = footprints["result"]["launches"]
     by_path = {name: {"orbit": frame_launches[name],
                       "serve": served["launches"][name],
                       "window": served["window"]["launches"][name],
                       "arms": arm_launches[name],
-                      "mesh": mesh_frame["launches"][name]}
+                      "mesh": mesh_frame["launches"][name],
+                      "footprints": fp_launches[name]}
                for name in frame_launches}
+    by_fp = footprints["result"]["footprints"]
     fp1 = served["footprint1"]
     emit_k, merge_k = armed["emit"], armed["merge"]
     sort_ms_by_n = {n: statistics.median(t)
@@ -2338,6 +2858,8 @@ def main() -> int:
             "multihost": {
                 "launches": multihost["sort4_launches_by_rank"],
                 "by_n": multihost["sort4_launches_by_n_by_rank"]},
+            "footprints": {"launches": fp_launches["sort4"],
+                           "by_n": footprints["by_n"]},
         },
         "checked_n": sorted(sort_checked),
         "bound_ms_by_n": {n: sort4_bound_ms(n)[0] for n in sort_ms_by_n},
@@ -2349,8 +2871,8 @@ def main() -> int:
         "source": "point_cloud_tpu_torch/csrc/cull.cu",
         "replaces": "point_cloud_tpu/render/kernel.py:205",
         "launches": frame_launches["cull_classify"],
-        "max_abs_err": max(cull["max_abs_err"],
-                           *(b["cull_err"] for b in fp1["buckets"])),
+        "max_abs_err": max(cull["max_abs_err"], fp1["cull_err"],
+                           footprints["cull_err"]),
         "ms": cull["ms"], "wrapper_ms": cull["wrapper_ms"],
         "plain_ms": cull["plain_ms"],
         "bound_ms": cull["bound_ms"], "bound_by": "bytes",
@@ -2360,13 +2882,18 @@ def main() -> int:
         "library_ms": None,
         "n": cull["n"], "inside": cull["inside"],
         "ms_runs": cull["ms_runs"], "plain_ms_runs": cull["plain_ms_runs"],
+        # phase 9: the largest bucket's K1 at ladders of 31, 64 and 129
+        # rungs (footprints 29, 64, 129), from a flushed L2
+        "footprints": {fp: {k: by_fp[fp][k] for k in (
+            "rungs", "largest_bucket_n", "k1_ms", "k1_bound_ms")}
+            for fp in FOOTPRINT_TIMED},
     }, {
         "name": "splat_raster", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/splat.cu",
         "replaces": "point_cloud_tpu/render/splat.py:614",
         "launches": frame_launches["splat_raster"],
-        "max_abs_err": max(raster["max_abs_err"],
-                           *(b["raster_err"] for b in fp1["buckets"])),
+        "max_abs_err": max(raster["max_abs_err"], fp1["raster_err"],
+                           footprints["raster_err"]),
         "ms": raster["ms"], "wrapper_ms": raster["wrapper_ms"],
         "plain_ms": raster["plain_ms"],
         "bound_ms": raster["bound_ms"], "bound_by": raster["bound_by"],
@@ -2374,9 +2901,10 @@ def main() -> int:
         "bytes_bound_ms": raster["bytes_bound_ms"],
         "instr_bound_ms": raster["instr_bound_ms"],
         "launches_by_path": by_path["splat_raster"],
+        # the multi-dispatch arm's class raster at footprint 1 (phase 6)
         "footprint1": {
-            "buckets_checked": len(fp1["buckets"]),
-            "max_abs_err": max(b["raster_err"] for b in fp1["buckets"]),
+            "calls_checked": fp1["k2_calls"],
+            "max_abs_err": fp1["raster_err"],
             "largest_bucket_ms": fp1["largest_bucket_k2_ms"],
             **{k: fp1[k] for k in ("rows", "fragments", "touched_pixels",
                                    "bytes_bound_ms", "instr_bound_ms")}},
@@ -2390,6 +2918,15 @@ def main() -> int:
         "ms_runs": raster["ms_runs"],
         "plain_ms_runs": raster["plain_ms_runs"],
         "unit": "the one raster launch of the frame's largest bucket",
+        # phase 9: the largest bucket's one launch at footprints 29, 64, 129
+        "footprints": {fp: {k: by_fp[fp][k] for k in (
+            "rungs", "largest_window", "segments_a_bucket", "k2_ms",
+            "k2_rows", "k2_tested_fragments", "k2_bound_ms", "k2_bound_by")}
+            for fp in FOOTPRINT_TIMED},
+        # phase 9: the multi-dispatch arm's widest class raster at 129
+        "multi_dispatch_wide": {
+            FOOTPRINT_WIDE_TIMED:
+                by_fp[FOOTPRINT_WIDE_TIMED]["multi_dispatch_wide_k2"]},
     }, {
         "name": "emit_fragments", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/fragments.cu",
@@ -2399,13 +2936,19 @@ def main() -> int:
         "plain_ms": emit_k["plain_ms"], "bound_ms": emit_k["bound_ms"],
         "bound_by": emit_k["bound_by"], "bound_memory": "HBM",
         "timed_from": "a flushed L2",
-        "launches_by_path": {"arms": arm_launches["emit_fragments"]},
+        "launches_by_path": {
+            "arms": arm_launches["emit_fragments"],
+            "footprints": fp_launches["emit_fragments"]},
         # no single PyTorch call expands splats into fragment columns
         "library_ms": None,
         "length": emit_k["length"], "rows": emit_k["rows"],
         "tested_fragments": emit_k["tested"],
         "ms_runs": emit_k["ms_runs"], "plain_ms_runs": emit_k["plain_ms_runs"],
         "unit": "one launch on the sorted frame's largest bucket",
+        # phase 9: the sorted arm's largest bucket at footprints 64 and 129
+        "footprints": {fp: {k: by_fp[fp][k] for k in (
+            "k3_ms", "k3_length", "k3_classes", "k3_bound_ms", "k3_bound_by")}
+            for fp in FOOTPRINT_ARMS_AT if "k3_ms" in by_fp[fp]},
     }, {
         "name": "sorted_merge", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/sorted_merge.cu",
@@ -2415,7 +2958,9 @@ def main() -> int:
         "plain_ms": merge_k["plain_ms"], "bound_ms": merge_k["bound_ms"],
         "bound_by": merge_k["bound_by"], "bound_memory": "HBM",
         "timed_from": "a flushed L2",
-        "launches_by_path": {"arms": arm_launches["sorted_merge"]},
+        "launches_by_path": {
+            "arms": arm_launches["sorted_merge"],
+            "footprints": fp_launches["sorted_merge"]},
         # scatter_reduce_(..., "amin") over the winners is only the plain
         # version's last step, not the same function
         "library_ms": None,

@@ -14,8 +14,12 @@
 //   with a depth plane, the centre-sample occlusion test, and with a coarse
 //   grid, the depth-pyramid gate; then rmax = max(rx, ry) in pixels and the
 //   point's exclusive rung: the first ladder rung j < R - 1 whose
-//   threshold k_j / 2 exceeds rmax, else the catch-all R - 1; -1 where the
-//   point is not kept.
+//   threshold k_j / 2 exceeds rmax, else the catch-all R - 1 (a NaN rmax
+//   fits none); -1 where the point is not kept. A ladder has any number
+//   of rungs (a footprint F gives F - 1 sub-rungs): the scan reads the
+//   thresholds from device memory through the read-only cache (the lanes
+//   of a warp read the same few, one L1 broadcast a compare) and stops at
+//   the first fit, so a point costs as many compares as its rung's index.
 //
 // Arithmetic is IEEE single precision in the reference's order, with every
 // multiply, add and divide an explicit _rn intrinsic so nvcc never contracts
@@ -40,7 +44,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxHierarchies = 24;  // render/kernel.py MAX_HIERARCHIES
-constexpr int kMaxRungs = 32;
 constexpr int kPyramidTile = 8;  // render/kernel.py PYRAMID_TILE
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -81,7 +84,6 @@ __global__ void __launch_bounds__(kThreads) cull_classify_kernel(
     int* __restrict__ rung_out, long long n) {
   __shared__ float s_view[16], s_proj[16], s_cam[3];
   __shared__ float s_spacing[kMaxHierarchies], s_far[kMaxHierarchies];
-  __shared__ float s_thr[kMaxRungs];
   const int t = threadIdx.x;
   if (t < 16) {
     s_view[t] = view[t];
@@ -92,7 +94,6 @@ __global__ void __launch_bounds__(kThreads) cull_classify_kernel(
     s_spacing[t] = spacings[t];
     s_far[t] = far_distances[t];
   }
-  if (t < n_rungs) s_thr[t] = thresholds[t];
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + t;
@@ -159,7 +160,7 @@ __global__ void __launch_bounds__(kThreads) cull_classify_kernel(
   if (keep) {
     rung = n_rungs - 1;
     for (int j = 0; j < n_rungs - 1; ++j) {
-      if (rmax < s_thr[j]) {
+      if (rmax < __ldg(thresholds + j)) {
         rung = j;
         break;
       }
@@ -189,7 +190,7 @@ extern "C" int pc_cull_classify(
     const float* thresholds, int n_rungs, int width, int height,
     unsigned char* keep, int* hierarchy, float* view_pos, float* ndc,
     float* radius, float* rmax, int* rung, long long n, void* stream) {
-  if (n_rungs < 1 || n_rungs > kMaxRungs) return cudaErrorInvalidValue;
+  if (n_rungs < 1) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
   const long long blocks = (n + kThreads - 1) / kThreads;
   cull_classify_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,

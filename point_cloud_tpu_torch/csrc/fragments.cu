@@ -9,11 +9,12 @@
 // kernel): a compaction, a k x k fragment expansion and four concatenates.
 //
 // One launch a bucket writes the four columns that sort4 takes, for every
-// class of a table passed by value: class c draws ``rows[c]`` slots of the
-// ranking's region of class ``cls[c]`` (perm[offsets[cls] + i] while
-// i < counts[cls], read from device memory; the other slots take row 0
-// and no valid fragment, as the reference's compaction leaves them), each
-// slot through a k[c] x k[c] window, slot after slot, class after class.
+// class of a table in device memory (any number of classes, any window):
+// class c draws ``rows[c]`` slots of the ranking's region of class
+// ``cls[c]`` (perm[offsets[cls] + i] while i < counts[cls], read from
+// device memory; the other slots take row 0 and no valid fragment, as the
+// reference's compaction leaves them), each slot through a k[c] x k[c]
+// window, slot after slot, class after class.
 // Each fragment slot writes
 //   pix      the flat pixel index, or _NO_ID (i32::MAX) where invalid;
 //   bits     the depth's f32 bits with -0.0 mapped to +0.0, or _NO_ID;
@@ -29,12 +30,14 @@
 // sorted frame equal to the scatter frame, and this kernel equal to its
 // plain twin, bit for bit.
 //
-// Design: one thread a fragment slot, over a grid-stride loop with 64-bit
-// indices (a 65-px class of 2^20 rows holds 4.4 G slots). A thread finds
-// its class by a scan of the table (at most 32 entries, the same for most
-// of a warp), its row and window cell by a division, sets its row up
-// (the loads come from L1 or L2: a row's k * k slots are neighbours) and
-// writes its four words, neighbouring threads on neighbouring words. What
+// Design: one thread a fragment slot, over a grid-stride loop. The slots
+// of a launch fit 2^31 (the arrival index is an i32), so a class's k * k
+// and a slot's index within its class fit 32 unsigned bits at any window.
+// A thread finds its class by a binary search of the classes' first
+// slots (the same entries for most of a warp, from L1), its row and
+// window cell by a division, sets its row up (the loads come from L1 or
+// L2: a row's k * k slots are neighbours) and writes its four words,
+// neighbouring threads on neighbouring words. What
 // bounds it: the 16 bytes a slot that it writes (chip_smoke.py
 // fragments_bound_ms); the row set-up it repeats for each of a row's
 // k * k slots is arithmetic the card has to spare. Simple first: a later
@@ -46,17 +49,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxClasses = 32;
-constexpr int kMaxWindow = 128;
 constexpr int kNoId = 0x7fffffff;
-
-struct Classes {
-  int n;
-  int k[kMaxClasses];
-  int cls[kMaxClasses];
-  long long start[kMaxClasses];  // the class's first fragment slot
-  long long end;                 // the fragment slots of all classes
-};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -76,7 +69,8 @@ __global__ void __launch_bounds__(kThreads) emit_fragments_kernel(
     const int* __restrict__ point_id, const int* __restrict__ perm,
     const int* __restrict__ offsets, const int* __restrict__ counts,
     const float* __restrict__ proj, int width, int height, int voronoi,
-    const __grid_constant__ Classes cl, long long length) {
+    const int4* __restrict__ table, int n_classes, long long end,
+    long long length) {
   const float p00 = proj[0], p11 = proj[5], p22 = proj[10], p23 = proj[11];
   const float eps = static_cast<float>(1e-6);
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -84,25 +78,27 @@ __global__ void __launch_bounds__(kThreads) emit_fragments_kernel(
                      threadIdx.x;
        g < length; g += stride) {
     int out_pix = kNoId, out_bits = kNoId, out_id = 0;
-    if (g < cl.end) {
-      int c = 0;
-      while (c + 1 < cl.n && g >= cl.start[c + 1]) ++c;
-      const int k = cl.k[c];
-      const int kk = k * k;
-      const long long local = g - cl.start[c];
-      long long i;  // the class's slot (row); f: the window cell
-      int f;
-      if (local <= 0x7fffffffLL) {
-        const unsigned q = static_cast<unsigned>(local) / kk;
-        i = q;
-        f = static_cast<int>(static_cast<unsigned>(local) - q * kk);
-      } else {
-        i = local / kk;
-        f = static_cast<int>(local - i * kk);
+    if (g < end) {
+      // the class: the last one whose first slot is at or before g
+      int lo = 0, hi = n_classes - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (__ldg(&table[mid].x) <= g) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
       }
+      const int4 c = table[lo];
+      const int k = c.y;
+      const unsigned kk = static_cast<unsigned>(k) * static_cast<unsigned>(k);
+      const unsigned local = static_cast<unsigned>(g - c.x);
+      const unsigned i = local / kk;  // the class's slot (row)
+      const int f = static_cast<int>(local - i * kk);  // the window cell
       const int iy = f / k, ix = f - iy * k;
-      const bool row_ok = i < counts[cl.cls[c]];
-      const long long r = row_ok ? perm[offsets[cl.cls[c]] + i] : 0;
+      const bool row_ok = i < static_cast<unsigned>(max(counts[c.z], 0));
+      const long long r =
+          row_ok ? perm[static_cast<long long>(offsets[c.z]) + i] : 0;
       out_id = point_id[r];
       if (row_ok) {
         // the row's set-up, as raster_unit does it (csrc/splat.cu)
@@ -153,45 +149,34 @@ __global__ void __launch_bounds__(kThreads) emit_fragments_kernel(
 
 }  // namespace
 
-// Writes the four (length,) sort columns of ``n_classes`` classes: class
-// c draws rows[c] slots of ranking class cls[c] through a k[c] x k[c]
-// window; ``k``, ``cls`` and ``rows`` are host arrays of that length. The
-// classes' fragments (rows * k * k summed) must fit ``length``, at most
-// 2^31 slots (the arrival index is an i32). Returns the cudaError_t of the
-// launch.
+// Writes the four (length,) sort columns of ``n_classes`` classes: ``table``
+// is a device array of int4 (first slot, k, cls, rows), one a class, in
+// slot order: class c draws rows slots of ranking class cls through a
+// k x k window from its first slot on, and the classes' slots end at
+// ``end``. The caller keeps rows * k * k summed within ``length``, at most
+// 2^31 slots (the arrival index is an i32), every cls below the length of
+// counts, and the first slots ascending (render/splat.py builds the
+// table). Returns the cudaError_t of the launch.
 extern "C" int pc_emit_fragments(int* pix, int* bits, int* ids, int* arrival,
                                  const float* view_pos, const float* ndc,
                                  const float* radius, const int* point_id,
                                  const int* perm, const int* offsets,
                                  const int* counts, const float* proj,
                                  int width, int height, int voronoi,
-                                 int n_classes, const int* k, const int* cls,
-                                 const int* rows, long long length,
+                                 int n_classes, const int* table,
+                                 long long end, long long length,
                                  void* stream) {
-  if (width < 1 || height < 1 || n_classes < 1 || n_classes > kMaxClasses ||
+  if (width < 1 || height < 1 || n_classes < 1 || end < 0 || end > length ||
       length < 1 || length > (1LL << 31) ||
       static_cast<long long>(width) * height > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  Classes cl;
-  cl.n = n_classes;
-  long long at = 0;
-  for (int c = 0; c < kMaxClasses; ++c) {
-    const bool used = c < n_classes;
-    if (used && (k[c] < 1 || k[c] > kMaxWindow || cls[c] < 0 || rows[c] < 1))
-      return cudaErrorInvalidValue;
-    cl.k[c] = used ? k[c] : 1;
-    cl.cls[c] = used ? cls[c] : 0;
-    cl.start[c] = at;
-    if (used) at += static_cast<long long>(rows[c]) * k[c] * k[c];
-  }
-  cl.end = at;
-  if (at > length) return cudaErrorInvalidValue;
   const long long blocks = (length + kThreads - 1) / kThreads;
   const unsigned grid =
       static_cast<unsigned>(blocks < (1LL << 20) ? blocks : (1LL << 20));
   emit_fragments_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       pix, bits, ids, arrival, view_pos, ndc, radius, point_id, perm, offsets,
-      counts, proj, width, height, voronoi, cl, length);
+      counts, proj, width, height, voronoi,
+      reinterpret_cast<const int4*>(table), n_classes, end, length);
   return static_cast<int>(cudaGetLastError());
 }

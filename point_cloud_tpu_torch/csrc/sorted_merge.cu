@@ -54,7 +54,7 @@
 // fewer than four rows run as scalar rows, so any n >= 1 and any 4-byte
 // aligned column (a view at an offset) works.
 //
-// kUnroll and kInFlightBytes were chosen by tools/sorted_merge_ab.py on an
+// kUnroll and kInFlightBytes were chosen by tools/kernel_ab.py merge on an
 // H100 (PERF.md): 4 vectors a lane and 64 KB a SM (four blocks of
 // the 62-register kernel) were the fastest on a dense list and within 2%
 // of 2 vectors on a list shaped like the sorted arm's largest bucket; 32

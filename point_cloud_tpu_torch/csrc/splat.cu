@@ -11,9 +11,10 @@
 // One launch rasters every segment of a bucket. A segment is a run of
 // perm rows drawn through one k x k window: a rung's region, capped for
 // an overflow rung, or the tail beyond that cap, drawn through the
-// footprint window. The table of segments (window, rung, cap, tail flag)
-// comes by value; the rungs' counts and offsets are read from device
-// memory, so the host never waits for the cull's counts.
+// footprint window. The table of segments (window, rung, cap, tail flag;
+// any number of them, any window) lies in device memory, and so do the
+// rungs' counts and offsets, so the host never waits for the cull's
+// counts.
 //
 // Work is cut into units of fragments, not rows. The lanes of a warp lie
 // along the columns of the window: a group of k lanes draws one row
@@ -24,10 +25,14 @@
 // (up to 32 rows, near 1024 fragments): every lane first sets one row up
 // (its loads, pixel centre and radii: half of a small window's
 // instructions when each group did it for itself), and each batch fetches
-// its rows' values with shuffles. Every block computes the units' prefix
-// sum from the device counts (64-bit) and its warps stride over the unit
-// index space: the grid is persistent, sized by the occupancy the card
-// reports.
+// its rows' values with shuffles. Warps stride over the unit index space
+// (64-bit): the grid is persistent, sized by the occupancy the card
+// reports. A warp reads the segment table 32 segments at a time, a lane a
+// segment, and forms their units' prefix sum from the device counts with
+// shuffles; its units rise, so it reads each chunk of the table once. The
+// chunk's unit ends, rows and windows sit in the warp's shared memory, and
+// a unit's segment is a ballot over them. A window's tiles
+// and a segment's units are 64-bit, so no index overflows at any window.
 //
 // A lane computes nx for its column once a batch, and ny for one window
 // row of the slab; the loop over the slab's rows fetches ny * ny and the
@@ -62,19 +67,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMinBlocks = 6;  // blocks a SM: 40 registers a thread
-constexpr int kMaxSegments = 32;
-constexpr int kMaxWindow = 128;  // four column passes of 32 lanes
+// blocks a SM: 48 registers a thread. At 6 and 40 registers the warps'
+// table state pushed spills into the raster's loop, 10% slower than the
+// by-value table of 32 segments on the orbit's largest bucket; at 5, 1-4%
+// (tools/kernel_ab.py frame, H100 80GB HBM3 at 700 W)
+constexpr int kMinBlocks = 5;
 constexpr int kSlabRows = 16;    // most window rows a unit
 constexpr int kUnitFragments = 1024;  // a unit's size where rows allow
-
-struct Segments {
-  int n;
-  int k[kMaxSegments];     // window
-  int rung[kMaxSegments];  // index into counts and offsets
-  int cap[kMaxSegments];   // rows the rung draws through its own window
-  int tail[kMaxSegments];  // 1: the rows beyond cap; 0: the rows up to it
-};
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -100,12 +100,12 @@ struct Frame {
 // The shape of a segment's units, from its window alone.
 struct Shape {
   int k;
-  int group;      // lanes a row: min(k, 32)
-  int rpw;        // rows a warp draws at once: 32 / group
-  int batches;    // such row batches a unit
-  int passes;     // 32-column passes of the window
-  int tiles;      // slabs x passes
-  int slab_rows;  // window rows a slab
+  int group;        // lanes a row: min(k, 32)
+  int rpw;          // rows a warp draws at once: 32 / group
+  int batches;      // such row batches a unit
+  int passes;       // 32-column passes of the window
+  long long tiles;  // slabs x passes
+  int slab_rows;    // window rows a slab
 };
 
 __device__ __forceinline__ Shape shape_of(int k) {
@@ -115,14 +115,42 @@ __device__ __forceinline__ Shape shape_of(int k) {
   s.rpw = 32 / s.group;
   // a unit sets up to 32 rows up at once, one a lane, as long as it stays
   // near kUnitFragments: small windows share the set-up, large ones keep
-  // many units
-  const int fit = kUnitFragments / (s.rpw * k * k);
-  s.batches = max(1, min(32 / s.rpw, fit));
-  s.passes = (k + 31) / 32;
-  const int slabs = (k + kSlabRows - 1) / kSlabRows;
-  s.tiles = slabs * s.passes;
-  s.slab_rows = (k + slabs - 1) / slabs;
+  // many units (a window wider than 32 holds more than kUnitFragments)
+  s.batches = k > 32 ? 1
+                     : max(1, min(32 / s.rpw, kUnitFragments / (s.rpw * k * k)));
+  s.passes = (k - 1) / 32 + 1;
+  const int slabs = (k - 1) / kSlabRows + 1;
+  s.tiles = static_cast<long long>(slabs) * s.passes;
+  s.slab_rows = (k - 1) / slabs + 1;
   return s;
+}
+
+// A segment's rows: its first row in perm, its row count and its window.
+// The table holds a segment as one int4: x the window k, y the rung (an
+// index into counts and offsets), z the cap (rows the rung draws through
+// its own window), w the tail flag (1: the rows beyond cap; 0: the rows
+// up to it).
+struct SegmentRows {
+  long long start, count;
+  int k;
+};
+
+__device__ __forceinline__ SegmentRows segment_rows(
+    const int4* __restrict__ table, const int* __restrict__ offsets,
+    const int* __restrict__ counts, long long s) {
+  const int4 seg = table[s];
+  const long long cap = seg.z;
+  const long long c = counts[seg.y];
+  SegmentRows r;
+  r.start = offsets[seg.y];
+  if (seg.w) {
+    r.start += cap;
+    r.count = c > cap ? c - cap : 0;
+  } else {
+    r.count = c < cap ? (c > 0 ? c : 0) : cap;
+  }
+  r.k = seg.x;
+  return r;
 }
 
 // One unit: rows [first_row, first_row + rpw * batches) of the segment
@@ -171,14 +199,14 @@ __device__ __forceinline__ void raster_unit(
     const int src = b * sh.rpw + sub_row;  // the lane that set my row up
     if (b * sh.rpw >= left) break;         // the segment ends in this unit
     const bool live = sub_row < sh.rpw && src < left;
-    const float px = __shfl_sync(0xffffffffu, my_px, src);
-    const float py = __shfl_sync(0xffffffffu, my_py, src);
-    const float rx = __shfl_sync(0xffffffffu, my_rx, src);
-    const float ry = __shfl_sync(0xffffffffu, my_ry, src);
-    const float vz = __shfl_sync(0xffffffffu, my_vz, src);
-    const float rad = __shfl_sync(0xffffffffu, my_rad, src);
-    const float n2 = __shfl_sync(0xffffffffu, my_n2, src);
-    const unsigned id = __shfl_sync(0xffffffffu, my_id, src);
+    const float px = __shfl_sync(kAll, my_px, src);
+    const float py = __shfl_sync(kAll, my_py, src);
+    const float rx = __shfl_sync(kAll, my_rx, src);
+    const float ry = __shfl_sync(kAll, my_ry, src);
+    const float vz = __shfl_sync(kAll, my_vz, src);
+    const float rad = __shfl_sync(kAll, my_rad, src);
+    const float n2 = __shfl_sync(kAll, my_n2, src);
+    const unsigned id = __shfl_sync(kAll, my_id, src);
     const float bx = (k % 2) ? rintf(px) : floorf(px);
     const float by = (k % 2) ? rintf(py) : floorf(py);
 
@@ -199,8 +227,8 @@ __device__ __forceinline__ void raster_unit(
     const int my_y = row_on ? __float2int_rz(fy) * f.width : -1;
 
     for (int s = 0; s < steps; ++s) {
-      const float ny2 = __shfl_sync(0xffffffffu, my_ny2, first + s);
-      const int y = __shfl_sync(0xffffffffu, my_y, first + s);
+      const float ny2 = __shfl_sync(kAll, my_ny2, first + s);
+      const int y = __shfl_sync(kAll, my_y, first + s);
       const float d2 = add(nx2, ny2);
       if (d2 <= 1.0f && (x | y) >= 0) {
         float depth = n2;
@@ -228,38 +256,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) splat_raster_kernel(
     const int* __restrict__ point_id, const int* __restrict__ perm,
     const int* __restrict__ offsets, const int* __restrict__ counts,
     const float* __restrict__ proj, int width, int height, int voronoi,
-    const __grid_constant__ Segments segs) {
-  __shared__ long long seg_start[kMaxSegments];
-  __shared__ long long seg_count[kMaxSegments];
-  __shared__ long long unit_end[kMaxSegments];  // inclusive prefix of units
-  const int lane = threadIdx.x % 32;
-  if (threadIdx.x < 32) {
-    long long start = 0, count = 0, units = 0;
-    if (lane < segs.n) {
-      const long long cap = segs.cap[lane];
-      const long long c = counts[segs.rung[lane]];
-      start = offsets[segs.rung[lane]];
-      if (segs.tail[lane]) {
-        start += cap;
-        count = c > cap ? c - cap : 0;
-      } else {
-        count = c < cap ? (c > 0 ? c : 0) : cap;
-      }
-      const Shape sh = shape_of(segs.k[lane]);
-      const int unit_rows = sh.rpw * sh.batches;
-      units = (count + unit_rows - 1) / unit_rows * sh.tiles;
-    }
-#pragma unroll
-    for (int d = 1; d < 32; d *= 2) {
-      const long long below = __shfl_up_sync(0xffffffffu, units, d);
-      if (lane >= d) units += below;
-    }
-    seg_start[lane] = start;
-    seg_count[lane] = count;
-    unit_end[lane] = units;
-  }
-  __syncthreads();
-
+    const int4* __restrict__ table, int n_segments) {
+  // per warp, the chunk of 32 segments it has reached: ends[0] is where
+  // the chunk's units begin and ends[l + 1] where segment 32 * chunk + l's
+  // units end (counted from unit 0 of the launch); start, count and k are
+  // that segment's first row in perm, its rows and its window. Shared
+  // memory: a unit reads its segment's rows there, as the raster's loop
+  // needs every register
+  constexpr int kWarps = kThreads / 32;
+  __shared__ long long s_ends[kWarps][33];
+  __shared__ long long s_start[kWarps][32], s_count[kWarps][32];
+  __shared__ int s_k[kWarps][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  long long* ends = s_ends[warp];
+  if (lane == 0) ends[32] = 0;
+  __syncwarp();
   Frame f;
   f.fb = fb;
   f.view_pos = view_pos;
@@ -274,66 +285,84 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) splat_raster_kernel(
   f.height = height;
   f.voronoi = voronoi;
 
-  const long long total = unit_end[segs.n - 1];
-  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
-  int j = -1, next = 0;  // the unit's segment; the first one not yet passed
+  int chunk = -1;
+  int j = -1;  // the lane in the chunk whose segment the last unit drew
   Shape sh = shape_of(1);
   int sub_row = 0, col = 0;
   long long base = 0;
-  for (long long u = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
-                     threadIdx.x / 32;
-       u < total; u += warps) {
-    while (u >= unit_end[next]) ++next;  // u < total: next < segs.n
-    if (next != j) {
-      j = next;
-      base = j ? unit_end[j - 1] : 0;
-      sh = shape_of(segs.k[j]);
+  for (long long u = static_cast<long long>(blockIdx.x) * kWarps + warp;;
+       u += static_cast<long long>(gridDim.x) * kWarps) {
+    while (u >= ends[32]) {  // the warp moves on to the next chunk
+      if (32 * (chunk + 1) >= n_segments) return;  // past the last unit
+      const long long carry = ends[32];
+      ++chunk;
+      const int s = 32 * chunk + lane;
+      long long units = 0;
+      SegmentRows r{0, 0, 1};
+      if (s < n_segments) {
+        r = segment_rows(table, offsets, counts, s);
+        const Shape ss = shape_of(r.k);
+        const int unit_rows = ss.rpw * ss.batches;
+        units = (r.count + unit_rows - 1) / unit_rows * ss.tiles;
+      }
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const long long below = __shfl_up_sync(kAll, units, d);
+        if (lane >= d) units += below;
+      }
+      __syncwarp();  // every lane has read the old chunk's end
+      if (lane == 0) ends[0] = carry;
+      ends[lane + 1] = carry + units;
+      s_start[warp][lane] = r.start;
+      s_count[warp][lane] = r.count;
+      s_k[warp][lane] = r.k;
+      __syncwarp();
+      j = -1;
+    }
+    // the unit's segment: the first lane of the chunk whose units end past u
+    const int jl = __popc(__ballot_sync(kAll, ends[lane + 1] <= u));
+    if (jl != j) {
+      j = jl;
+      base = ends[jl];
+      sh = shape_of(s_k[warp][jl]);
       sub_row = lane / sh.group;
       col = lane - sub_row * sh.group;
     }
     const long long local = u - base;
     long long batch = local;  // a window of one tile needs no division
-    int tile = 0;
+    int slab = 0, pass = 0;
     if (sh.tiles > 1) {
       batch = local / sh.tiles;
-      tile = static_cast<int>(local - batch * sh.tiles);
+      const long long tile = local - batch * sh.tiles;
+      const long long slab64 = tile / sh.passes;
+      slab = static_cast<int>(slab64);
+      pass = static_cast<int>(tile - slab64 * sh.passes);
     }
-    raster_unit(f, perm + seg_start[j], seg_count[j],
-                batch * (sh.rpw * sh.batches), tile / sh.passes,
-                tile % sh.passes, sh, sub_row, col);
+    raster_unit(f, perm + s_start[warp][j], s_count[warp][j],
+                batch * (sh.rpw * sh.batches), slab, pass, sh, sub_row, col);
   }
 }
 
 }  // namespace
 
-// Rasters ``n_segments`` segments in one launch. ``k``, ``rung``, ``cap``
-// and ``tail`` are host arrays of that length: segment s draws rows of
-// perm through a k[s] x k[s] window, from rung[s]'s region [offsets[r],
-// offsets[r] + counts[r]) of device memory: its first min(count, cap[s])
-// rows, or with tail[s] the rows beyond cap[s]. Returns the cudaError_t
-// of the launch.
+// Rasters the ``n_segments`` segments of ``table`` in one launch: a
+// device array of int4 (k, rung, cap, tail), one a segment. Segment s
+// draws rows of perm through a k x k window (k >= 1), from its rung's
+// region [offsets[r], offsets[r] + counts[r]) of device memory: its first
+// min(count, cap) rows (cap >= 0), or with tail the rows beyond cap. The
+// caller keeps every rung below the length of counts and every segment's
+// units (rows over a unit's rows, times the window's tiles) in 64 bits
+// (render/splat.py checks both). Returns the cudaError_t of the launch.
 extern "C" int pc_splat_raster(unsigned long long* fb, const float* view_pos,
                                const float* ndc, const float* radius,
                                const int* point_id, const int* perm,
                                const int* offsets, const int* counts,
                                const float* proj, int width, int height,
-                               int voronoi, int n_segments, const int* k,
-                               const int* rung, const int* cap,
-                               const int* tail, void* stream) {
-  if (width < 1 || height < 1 || n_segments < 1 || n_segments > kMaxSegments ||
+                               int voronoi, int n_segments, const int* table,
+                               void* stream) {
+  if (width < 1 || height < 1 || n_segments < 1 ||
       static_cast<long long>(width) * height > 0x7fffffffLL)  // int pixel index
     return cudaErrorInvalidValue;
-  Segments segs;
-  segs.n = n_segments;
-  for (int s = 0; s < kMaxSegments; ++s) {
-    const bool used = s < n_segments;
-    if (used && (k[s] < 1 || k[s] > kMaxWindow || rung[s] < 0 || cap[s] < 0))
-      return cudaErrorInvalidValue;
-    segs.k[s] = used ? k[s] : 1;
-    segs.rung[s] = used ? rung[s] : 0;
-    segs.cap[s] = used ? cap[s] : 0;
-    segs.tail[s] = used ? tail[s] : 0;
-  }
   // a full persistent grid on the current device
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -346,6 +375,6 @@ extern "C" int pc_splat_raster(unsigned long long* fb, const float* view_pos,
   const int blocks = sms * (per_sm > 0 ? per_sm : 1);
   splat_raster_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       fb, view_pos, ndc, radius, point_id, perm, offsets, counts, proj, width,
-      height, voronoi, segs);
+      height, voronoi, reinterpret_cast<const int4*>(table), n_segments);
   return static_cast<int>(cudaGetLastError());
 }

@@ -127,10 +127,10 @@ def load_kernels():
             [ptr] * 8 + [i32, i32, ptr, ptr, i32, ptr, i32, i32, i32]
             + [ptr] * 7 + [i64, ptr])
         lib.pc_splat_raster.restype = ctypes.c_int
-        lib.pc_splat_raster.argtypes = [ptr] * 9 + [i32] * 4 + [ptr] * 5
+        lib.pc_splat_raster.argtypes = [ptr] * 9 + [i32] * 4 + [ptr] * 2
         lib.pc_emit_fragments.restype = ctypes.c_int
         lib.pc_emit_fragments.argtypes = (
-            [ptr] * 12 + [i32] * 4 + [ptr] * 3 + [i64, ptr])
+            [ptr] * 12 + [i32] * 4 + [ptr, i64, i64, ptr])
         lib.pc_sorted_merge.restype = ctypes.c_int
         lib.pc_sorted_merge.argtypes = [ptr, i64, ptr, ptr, ptr, i64, ptr]
         build_info.update(path=str(lib_path), seconds=seconds)

@@ -315,8 +315,8 @@ def _check_cull_args(tensors, dev):
     if tensors["spacings"].numel() < MAX_HIERARCHIES or \
             tensors["far_distances"].numel() < MAX_HIERARCHIES:
         raise ValueError("cull_classify: spacings and far_distances need 24 entries")
-    if not 1 <= tensors["thresholds"].numel() <= 32:
-        raise ValueError("cull_classify: 1 to 32 ladder thresholds")
+    if tensors["thresholds"].numel() < 1:
+        raise ValueError("cull_classify: at least one ladder threshold")
 
 
 def cull_classify(positions, hier_base, valid, view, projection, cam_pos,

@@ -29,14 +29,12 @@ Every render arm of the reference runs (renderer.py:536-1005):
   each pixel run. A bucket without history, and ``compact_raster`` off,
   raster every kept row through the footprint window.
 
-Two differences from the reference are deliberate. A ``footprint`` outside
-1 to ``splat.MAX_WINDOW`` raises ``ValueError`` where the reference draws
-any window. At footprint 1 the default arm (megakernel, compact and
-chunked raster, scatter mode) rasters every kept row through the 1x1
-window, one segment of K2, where the reference runs its multi-dispatch arm
-with a budget sized from the last frame (splat.py:65-93) and so can drop
-rows on the one frame after a jump in visibility; every other arm at
-footprint 1 runs as the reference's does.
+Every footprint renders, in every arm, as the reference draws it: K1
+takes a ladder of any length (a footprint F gives F - 1 sub-rungs), K2 a
+table of any number of segments and windows of any size, K3 any number of
+classes. At footprint 1 the megakernel is off, as in the reference
+(renderer.py:536-541): the multi-dispatch arm runs, with a budget sized
+from the last frame. Only a footprint below 1 raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -69,9 +67,8 @@ def raster_bucket(n: int, minimum: int = 1 << 10) -> int:
 @dataclass
 class RenderSettings:
     """The reference's settings (renderer.py:78-197), every field with the
-    same default; see there for each knob's measured rationale. The raster
-    kernel draws windows of 1 to ``splat.MAX_WINDOW`` pixels: the ladder
-    ends at 65, so only a ``footprint`` outside that range is refused."""
+    same default; see there for each knob's measured rationale. Every
+    ``footprint`` of 1 or more renders on either device."""
 
     width: int = 1280
     height: int = 720
@@ -96,11 +93,10 @@ class RenderSettings:
 
 
 def check_ported(settings: RenderSettings) -> None:
-    """Raise for a footprint outside the raster kernel's windows, the one
-    setting the port refuses."""
-    if not 1 <= settings.footprint <= splat.MAX_WINDOW:
-        raise ValueError(f"footprint {settings.footprint}: the raster kernel "
-                         f"draws windows of 1 to {splat.MAX_WINDOW} pixels")
+    """Raise for a footprint below 1, the one setting no renderer draws."""
+    if settings.footprint < 1:
+        raise ValueError(f"footprint {settings.footprint}: a splat window is "
+                         "at least 1 pixel")
 
 
 def hierarchy_tables(metadata: Metadata) -> tuple[np.ndarray, np.ndarray]:
@@ -330,11 +326,8 @@ class PointRenderer:
         use_occ = s.occlusion and not paused
         use_pyr = use_occ and s.depth_pyramid
         subs, overs, thresholds = self._rungs()
-        # the megakernel's arms; footprint 1 with chunked rungs is the
-        # port's footprint-1 arm (module docstring)
-        use_mega = (s.megakernel and s.compact_raster
-                    and s.raster_mode != "sorted"
-                    and (s.footprint > 1 or s.chunked_raster))
+        use_mega = (s.megakernel and s.compact_raster and s.footprint > 1
+                    and s.raster_mode != "sorted")
         fused = use_mega and s.frame_fusion
 
         cells = self.gather_points(streamer, camera)
@@ -384,9 +377,6 @@ class PointRenderer:
                     framebuffer, counts_vec = self._bucket_pass(
                         framebuffer, rows, static, consts, thresholds,
                         use_occ, use_pyr)
-                # at footprint 1 the reference lands the cull's cumulative
-                # fit counts (renderer.py:667-669); exclusive counts of the
-                # same ladder land the same per-rung values
                 frame_vecs.append((bucket, subs + (s.footprint,) + overs,
                                    counts_vec, "excl"))
             else:

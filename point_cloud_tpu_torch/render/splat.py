@@ -13,11 +13,12 @@ smallest id, splat.py:262-298) in one comparison. The clear word is
 - :func:`splat_raster_segments` is K2, the raster of one bucket: every
   :class:`Segment` of :func:`bucket_segments` (a rung's region of
   ``perm`` through its own window, capped for an overflow rung, or the
-  tail beyond that cap through the footprint window; at footprint 1 one
-  segment over every kept row, :func:`raster_table`), the rungs' counts
-  and offsets read from device memory. On a CUDA tensor it is one launch
-  of the hand-written kernel ``csrc/splat.cu`` (lanes along the window's
-  columns, one 64-bit ``atomicMin`` a lit fragment), or it raises; on a
+  tail beyond that cap through the footprint window; any number of
+  segments, any window), the rungs' counts and offsets read from device
+  memory. On a CUDA tensor it is one launch of the hand-written kernel
+  ``csrc/splat.cu`` (lanes along the window's columns, one 64-bit
+  ``atomicMin`` a lit fragment) over the segment table, which
+  :func:`_device_table` uploads once a table, or it raises; on a
   CPU tensor it runs :func:`splat_raster_segments_reference`, its plain
   twin: a loop over the segments on :func:`splat_raster_reference`,
   which expands the fragments with torch ops in the reference's order
@@ -51,7 +52,6 @@ launches of K2, K3 and K4.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -280,8 +280,6 @@ class Segment(NamedTuple):
 
 
 NO_CAP = 1 << 30  # the cap of a rung that has none
-MAX_SEGMENTS = 32  # csrc/splat.cu kMaxSegments
-MAX_WINDOW = 128  # csrc/splat.cu kMaxWindow
 
 
 def bucket_segments(rungs: tuple, footprint: int, n: int) -> tuple:
@@ -298,21 +296,6 @@ def bucket_segments(rungs: tuple, footprint: int, n: int) -> tuple:
     segs += [Segment(footprint, j, caps[j], True)
              for j, k in enumerate(rungs) if k > footprint]
     return tuple(segs)
-
-
-def raster_table(rungs: tuple, footprint: int, n: int, counts, offsets):
-    """(segments, counts, offsets) that K2 rasters a bucket of ``n`` rows
-    ranked into ``rungs`` by: the rungs' own (R,) counts and offsets with
-    :func:`bucket_segments`, or at footprint 1 one segment of k = 1 over
-    every kept row (the reference's footprint-1 arm, renderer.py:879-886,
-    has no overflow rung: each splat is clipped to its centre pixel), with
-    one-element counts and offsets on the device. The ranking keeps the
-    ladder's classes either way; they give the frame's counts."""
-    if footprint != 1:
-        return bucket_segments(rungs, footprint, n), counts, offsets
-    # the classes lie one after another from perm[0]
-    total = counts.sum(dtype=torch.int32).reshape(1)
-    return (Segment(1, 0, NO_CAP, False),), total, torch.zeros_like(total)
 
 
 def segment_bounds(seg: Segment, offsets, counts):
@@ -343,10 +326,46 @@ def splat_raster_segments_reference(fb, view_pos, ndc, radius, point_id, perm,
     return fb
 
 
-def _segment_table(segments: tuple):
-    """The segments as the four int arrays ``pc_splat_raster`` takes."""
-    return tuple((ctypes.c_int * len(segments))(*(int(v) for v in col))
-                 for col in zip(*segments))
+_TABLE_LIMIT = 256  # cached device tables
+_tables: dict = {}  # (kind, rows, device) -> (n, 4) i32 device tensor
+
+
+def _device_table(kind: str, rows: tuple, device) -> torch.Tensor:
+    """The (n, 4) i32 table ``rows`` on ``device``: uploaded through pinned
+    memory without waiting on the card, once a table and device (a
+    bucket's segments change only with its ladder, size and budgets), then
+    cached. The kernels read their tables from it."""
+    key = (kind, rows, device)
+    table = _tables.get(key)
+    if table is None:
+        host = torch.tensor(rows, dtype=torch.int32).pin_memory()
+        table = host.to(device, non_blocking=True)
+        if len(_tables) >= _TABLE_LIMIT:
+            _tables.pop(next(iter(_tables)))
+        _tables[key] = table
+    return table
+
+
+def window_tiles(k: int) -> int:
+    """K2's tiles of a k x k window: slabs of 16 rows by passes of 32
+    columns (``csrc/splat.cu`` ``shape_of``)."""
+    return -(-k // 16) * -(-k // 32)
+
+
+def _check_segments(segments: tuple, n_rungs: int, perm_rows: int) -> None:
+    """Raise for a table ``pc_splat_raster`` cannot take: no segment, a
+    window below 1 or past i32, a negative cap, a rung outside the counts,
+    or more units than 64 bits count (a segment draws at most
+    ``perm_rows`` rows, a unit at least one row of one tile)."""
+    if not segments:
+        raise ValueError("splat_raster takes at least one segment")
+    for seg in segments:
+        if (not 1 <= seg.k < 1 << 31 or not 0 <= seg.cap < 1 << 31
+                or not 0 <= seg.rung < n_rungs):
+            raise ValueError(f"splat_raster takes windows k >= 1, caps >= 0 "
+                             f"and rungs below {n_rungs}; got {seg}")
+    if perm_rows * sum(window_tiles(seg.k) for seg in segments) >= 1 << 62:
+        raise ValueError("splat_raster: the segments' units pass 64 bits")
 
 
 def splat_raster_segments(fb, view_pos, ndc, radius, point_id, perm, offsets,
@@ -374,33 +393,22 @@ def splat_raster_segments(fb, view_pos, ndc, radius, point_id, perm, offsets,
               (offsets, torch.int32, (counts.shape[0],)),
               (counts, torch.int32, (counts.shape[0],)),
               (projection, torch.float32, (4, 4)))
-    for t, dtype, shape in expect:
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"splat_raster takes {dtype} {shape} contiguous tensors on "
-                f"{dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 1 <= len(segments) <= MAX_SEGMENTS:
-        raise ValueError(f"1 to {MAX_SEGMENTS} segments a launch, got "
-                         f"{len(segments)}")
-    for seg in segments:
-        if (not 1 <= seg.k <= MAX_WINDOW or seg.cap < 0
-                or not 0 <= seg.rung < counts.shape[0]):
-            raise ValueError(f"the kernel takes windows of 1 to {MAX_WINDOW}, "
-                             f"caps >= 0 and rungs below {counts.shape[0]}; "
-                             f"got {seg}")
+    _check_tensors("splat_raster", expect, dev)
+    _check_segments(segments, counts.shape[0], perm.shape[0])
     from ..ops.runtime import load_kernels
 
     lib = load_kernels()
-    ks, rungs, caps, tails = _segment_table(segments)
     with torch.cuda.device(dev):
+        table = _device_table("segments", tuple(
+            (seg.k, seg.rung, seg.cap, int(seg.tail)) for seg in segments),
+            dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pc_splat_raster(
             fb.data_ptr(), view_pos.data_ptr(), ndc.data_ptr(),
             radius.data_ptr(), point_id.data_ptr(), perm.data_ptr(),
             offsets.data_ptr(), counts.data_ptr(), projection.data_ptr(),
-            width, height, int(bool(voronoi)), len(segments), ks, rungs,
-            caps, tails, stream)
+            width, height, int(bool(voronoi)), len(segments),
+            table.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"pc_splat_raster launch failed: cudaError {rc}")
     launches += 1
@@ -449,8 +457,7 @@ def render_bucket_pass(framebuffer: Framebuffer, positions, hier_base, valid,
     launch rasters the bucket. ``chunked`` (the default arm): every
     rung's region of the ranking through its own window, an overflow rung
     at most its cap of rows, and the rest (its tail) through the footprint
-    window; at footprint 1, every kept row through the 1x1 window
-    (:func:`raster_table`). Not ``chunked``, the budget arm
+    window (:func:`bucket_segments`). Not ``chunked``, the budget arm
     (splat.py:791-835): each sub and overflow rung draws at most its
     static row budget (``sub_rows``, ``overflow_rows``), its rows past the
     budget spill into the footprint raster, which draws the first
@@ -543,11 +550,10 @@ def raster_rungs(fb, view_pos, ndc, radius, point_id, perm, counts, offsets,
                  projection, *, height: int, width: int, rungs: tuple,
                  footprint: int, voronoi: bool, raster=None):
     """The rung rasters of one bucket (splat.py:752-785), the segments of
-    :func:`raster_table`: by default one K2 call for all of them (one
+    :func:`bucket_segments`: by default one K2 call for all of them (one
     launch on the card); with ``raster``, that function once a segment
     with device-side start and count, the plain twin's loop."""
-    segments, counts, offsets = raster_table(rungs, footprint,
-                                             view_pos.shape[0], counts, offsets)
+    segments = bucket_segments(rungs, footprint, view_pos.shape[0])
     return raster_segments(fb, view_pos, ndc, radius, point_id, perm,
                            offsets, counts, projection, height, width,
                            segments, voronoi, raster)
@@ -684,7 +690,6 @@ def pack_frame(framebuffer: Framebuffer, colors, counts, height: int,
 # reads each row once and writes only the winners, so the port has no
 # counterpart of them.
 
-MAX_FRAGMENT_CLASSES = 32  # csrc/fragments.cu kMaxClasses
 fragment_launches = 0  # K3
 merge_launches = 0  # K4
 
@@ -803,15 +808,12 @@ def emit_fragment_columns(view_pos, ndc, radius, point_id, perm, offsets,
               (counts, torch.int32, (counts.shape[0],)),
               (projection, torch.float32, (4, 4)))
     _check_tensors("emit_fragments", expect, dev)
-    if not 1 <= len(classes) <= MAX_FRAGMENT_CLASSES:
-        raise ValueError(f"1 to {MAX_FRAGMENT_CLASSES} classes a launch, got "
-                         f"{len(classes)}")
+    if not classes:
+        raise ValueError("emit_fragments takes at least one class")
     for c in classes:
-        if (not 1 <= c.k <= MAX_WINDOW or c.rows < 1
-                or not 0 <= c.cls < counts.shape[0]):
-            raise ValueError(f"the kernel takes windows of 1 to {MAX_WINDOW}, "
-                             f"rows >= 1 and classes below "
-                             f"{counts.shape[0]}; got {c}")
+        if c.k < 1 or c.rows < 1 or not 0 <= c.cls < counts.shape[0]:
+            raise ValueError(f"emit_fragments takes windows k >= 1, rows >= 1 "
+                             f"and classes below {counts.shape[0]}; got {c}")
     total = fragment_total(classes)
     if length < total or length > 1 << 31:
         raise ValueError(f"{total} fragments in {length} slots (at most 2^31)")
@@ -819,17 +821,18 @@ def emit_fragment_columns(view_pos, ndc, radius, point_id, perm, offsets,
 
     lib = load_kernels()
     cols = torch.empty((4, length), dtype=torch.int32, device=dev)
-    ks, cls, rows = (
-        (ctypes.c_int * len(classes))(*(int(v) for v in col))
-        for col in zip(*classes))
+    starts = np.cumsum([0] + [c.rows * c.k * c.k for c in classes[:-1]])
     with torch.cuda.device(dev):
+        table = _device_table("classes", tuple(
+            (int(at), c.k, c.cls, c.rows) for at, c in zip(starts, classes)),
+            dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pc_emit_fragments(
             *(cols[i].data_ptr() for i in range(4)), view_pos.data_ptr(),
             ndc.data_ptr(), radius.data_ptr(), point_id.data_ptr(),
             perm.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
             projection.data_ptr(), width, height, int(bool(voronoi)),
-            len(classes), ks, cls, rows, length, stream)
+            len(classes), table.data_ptr(), total, length, stream)
     if rc != 0:
         raise RuntimeError(f"pc_emit_fragments launch failed: cudaError {rc}")
     fragment_launches += 1

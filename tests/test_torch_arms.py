@@ -21,7 +21,8 @@ every kernel runs its plain version.
   after a jump in visibility, where budgets drop or spill rows: the port
   drops or spills the reference's rows, not others.
 - The budget bucket pass against the reference's and the chunked one; the
-  multi-dispatch ``PACK_COUNTS`` fallback; ``check_ported``; and the one
+  multi-dispatch ``PACK_COUNTS`` fallback; ``check_ported`` (only a
+  footprint below 1 is refused); and the one
   case where the reference's "image-identical" fails: an overflow rung
   past the chunked megakernel's cap parts the default arm's frame from
   the uncapped ladder's.
@@ -272,17 +273,20 @@ def jax_render():
     return kernel, splat
 
 
-def test_only_the_footprint_is_refused():
-    """check_ported refuses a footprint outside 1-128 and nothing else."""
+def test_only_a_footprint_below_one_is_refused():
+    """check_ported takes every arm and every footprint from 1 up (129
+    and 300 past the old kernels' 128-px windows) and refuses only a
+    footprint below 1."""
     from point_cloud_tpu_torch.render.renderer import check_ported
 
     for settings in (dict(megakernel=False), dict(chunked_raster=False),
                      dict(compact_raster=False), dict(raster_mode="sorted"),
                      dict(frame_fusion=True),
                      dict(footprint=1, frame_fusion=True),
-                     dict(footprint=tsplat.MAX_WINDOW)):
+                     dict(footprint=128), dict(footprint=129),
+                     dict(footprint=300, raster_mode="sorted")):
         check_ported(TSettings(**settings))
-    for footprint in (0, tsplat.MAX_WINDOW + 1):
+    for footprint in (0, -1):
         with pytest.raises(ValueError, match="footprint"):
             check_ported(TSettings(footprint=footprint))
 

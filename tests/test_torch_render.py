@@ -27,10 +27,12 @@
   differs by at most 1.2e-7.
 - The reference's image identities hold exactly in the port. (Its other
   render arms: tests/test_torch_arms.py, tests/test_torch_fusion_sorted.py.)
-- Footprint 1: every bucket of the port's frame equals the NumPy oracle
-  at k = 1 over the kept rows, and the frame meets the JAX renderer's
-  (first and steady frames) with the same landed counts; a footprint of
-  129, which the reference draws, raises in the port.
+- Footprint 1: every bucket of the port's frame (the reference's arm)
+  equals the NumPy oracle at k = 1 over the kept rows the budget keeps,
+  and the frame meets the JAX renderer's (first and steady frames) with
+  the same landed counts. A footprint of 129 gives JAX's raster and the
+  oracle's; 129- and 300-px windows that cover the frame light the same
+  pixels.
 
 The kernels themselves (``cuda`` marker) are held against their plain
 versions only where a card exists; here they skip. On the card, without
@@ -1130,23 +1132,49 @@ def test_cap_tail_spills_through_footprint(monkeypatch):
     assert same.mean() >= 0.999
 
 
-def test_footprint_above_the_kernels_window_raises():
-    """The raster kernel's largest window bounds the footprint, on either
-    device: the limit is reported before any bucket runs."""
+def test_footprint_above_128_covers_the_frame():
+    """Windows past the old 128-px limit: on a 64x48 frame a 129-px window
+    (odd, centred on rint) and a 300-px window (even, based on floor) both
+    cover the frame from any on-screen centre, so they light the same
+    pixels; the 129-px plane equals the NumPy oracle's bit for bit. The
+    renderer takes both footprints (129 raised before)."""
     from point_cloud_tpu_torch.render.streaming import CellStreamer
 
+    w, h = 64, 48
+    view_pos, ndc, radius, ids, proj = splat_rows(3, 12, w, h, 120.0)
+    on = (np.abs(ndc[:, 0]) <= 1) & (np.abs(ndc[:, 1]) <= 1)
+    assert on.sum() >= 4
+    planes = {}
+    for k in (129, 300):
+        fb = tsplat.rasterize_splats(
+            tsplat.make_framebuffer(h, w), as_t(view_pos), as_t(ndc),
+            as_t(radius), as_t(ids), as_t(on), as_t(proj), height=h, width=w,
+            footprint=k, voronoi=True)
+        planes[k] = fb
+    want_d, want_i = oracle_raster(
+        np.ones(h * w, np.float32), np.full(h * w, NO_ID, np.int64),
+        *oracle_fragments(view_pos[on], ndc[on], radius[on], ids[on], proj,
+                          h, w, 129, True))
+    assert np.array_equal(planes[129].point_id.numpy(), want_i)
+    assert bits_equal(planes[129].depth.numpy(),
+                      np.where(want_d == 0, 0, want_d).astype(np.float32))
+    assert torch.equal(planes[129].packed, planes[300].packed)
+    assert (planes[129].point_id != NO_ID).sum() > 0.9 * w * h
     meta = TMetadata()
-    renderer = TRenderer(meta, TSettings(
-        width=32, height=24, footprint=tsplat.MAX_WINDOW + 1), device="cpu")
-    with pytest.raises(ValueError, match="footprint"):
-        renderer.render(CellStreamer(meta), tcamera.Camera())
+    for footprint in (129, 300):
+        renderer = TRenderer(meta, TSettings(width=32, height=24,
+                                             footprint=footprint),
+                             device="cpu")
+        rgb, _, _ = renderer.render(CellStreamer(meta), tcamera.Camera())
+        assert (rgb == tsplat.CLEAR_COLOR_U8[0]).all()
 
 
-def test_footprint_129_renders_in_the_reference_only():
-    """The one footprint the port refuses where the reference draws: the
-    JAX raster takes a 129-px window (a splat lights more pixels than the
-    ladder's widest rung, 65 x 65, could), the port raises ValueError
-    (its kernel's windows end at splat.MAX_WINDOW = 128)."""
+def test_footprint_129_matches_reference():
+    """A footprint the port refused before: the JAX raster draws a 129-px
+    window (a splat lights more pixels than the ladder's widest rung,
+    65 x 65, could), and the port's raster gives JAX's plane (the Frames
+    contract) and the NumPy oracle's (bit for bit); the port's renderer
+    takes the reference's settings at 129."""
     from point_cloud_tpu.render.renderer import RenderSettings
     from point_cloud_tpu_torch.render.streaming import CellStreamer
 
@@ -1157,67 +1185,88 @@ def test_footprint_129_renders_in_the_reference_only():
         rsplat.make_framebuffer(h, w), view_pos, ndc, radius, ids,
         np.ones(4, bool), proj, height=h, width=w, footprint=129,
         voronoi=True)
-    lit = np.bincount(np.asarray(fb.point_id)[np.asarray(fb.point_id)
-                                               != NO_ID])
+    ref_ids = np.asarray(fb.point_id)
+    lit = np.bincount(ref_ids[ref_ids != NO_ID])
     assert lit.max() > 65 * 65
+    got = tsplat.rasterize_splats(
+        tsplat.make_framebuffer(h, w), as_t(view_pos), as_t(ndc),
+        as_t(radius), as_t(ids), torch.ones(4, dtype=torch.bool),
+        as_t(proj), height=h, width=w, footprint=129, voronoi=True)
+    same = got.point_id.numpy() == ref_ids
+    assert same.mean() >= 0.999
+    assert np.abs(got.depth.numpy() - np.asarray(fb.depth))[same].max() <= 1e-6
+    want_d, want_i = oracle_raster(
+        np.ones(h * w, np.float32), np.full(h * w, NO_ID, np.int64),
+        *oracle_fragments(view_pos, ndc, radius, ids, proj, h, w, 129, True))
+    assert np.array_equal(got.point_id.numpy(), want_i)
     meta = TMetadata()
     renderer = TRenderer(meta, port_settings(RenderSettings(
         width=w, height=h, footprint=129)), device="cpu")
-    with pytest.raises(ValueError, match="footprint 129"):
-        renderer.render(CellStreamer(meta), tcamera.Camera())
+    rgb, _, _ = renderer.render(CellStreamer(meta), tcamera.Camera())
+    assert rgb.shape == (h, w, 3)
 
 
 # --- footprint 1 ------------------------------------------------------------
 
 
 def footprint_one_buckets(tmp_path, monkeypatch, n=25_000):
-    """The port's footprint-1 frame of the corridor at 128x96 on the CPU:
-    (input plane, arguments, keywords, output plane) of each bucket."""
+    """The port's footprint-1 frames of the corridor at 128x96 on the CPU,
+    a first and a steady one: for each bucket, the arguments of its cull
+    (``kernel.cull_classify``) and (input plane, arguments, output plane)
+    of its raster (the multi-dispatch arm's ``raster_compacted``)."""
     from point_cloud_tpu.render.renderer import RenderSettings
 
     meta = make_store(tmp_path, corridor(n, seed=61))
-    captured = []
-    bucket_pass = tsplat.render_bucket_pass
+    culls, captured = [], []
+    cull, raster = tkernel.cull_classify, tsplat.raster_compacted
 
-    def capture(framebuffer, *args, **kw):
+    def capture_cull(*args, **kw):
+        culls.append((args, kw))
+        return cull(*args, **kw)
+
+    def capture(framebuffer, *args):
         fb_in = framebuffer.packed.clone()
-        out = bucket_pass(framebuffer, *args, **kw)
-        captured.append((fb_in, args, kw, out[0].packed.clone()))
+        out = raster(framebuffer, *args)
+        captured.append((fb_in, args, out.packed.clone()))
         return out
 
-    monkeypatch.setattr(tsplat, "render_bucket_pass", capture)
+    monkeypatch.setattr(tkernel, "cull_classify", capture_cull)
+    monkeypatch.setattr(tsplat, "raster_compacted", capture)
     render_port(meta, tmp_path, corridor_camera(meta),
-                RenderSettings(width=128, height=96, footprint=1))
-    return captured
+                RenderSettings(width=128, height=96, footprint=1), frames=2)
+    assert len(culls) == len(captured)
+    return [(c, *r) for c, r in zip(culls, captured)]
 
 
 def test_footprint_one_frame_matches_numpy_oracle(tmp_path, monkeypatch):
-    """Every bucket of a footprint-1 frame, through the plain versions,
-    equals the NumPy oracle rasterizer at k = 1 over the bucket's kept rows
-    (the plain cull's), from the bucket's input plane, bit for bit; the
-    ladder's classes still rank the rows for the counts."""
+    """Every bucket of two footprint-1 frames, through the plain versions
+    (the reference's arm: K1, then one k = 1 segment of K2 over the
+    bucket's first ``out_size`` kept rows in row order), equals the NumPy
+    oracle rasterizer at k = 1 over those rows, from the bucket's input
+    plane, bit for bit. The rows it keeps are the plain cull's on the
+    bucket's own inputs and its input plane's depth, bit for bit."""
     captured = footprint_one_buckets(tmp_path, monkeypatch)
-    assert len(captured) > 1
-    for fb_in, args, kw, fb_out in captured:
-        (positions, hier_base, valid, ids, view, proj, cam_pos, spacings,
-         fars, sbd, maxh, thresholds) = args
-        assert kw["footprint"] == 1 and kw["sub_ks"] == ()
-        assert kw["use_occlusion"] and kw["use_pyramid"]
-        assert kw["overflow_ks"] == (2, 3, 4, 5, 6, 7, 8, 9, 17, 33, 65)
-        h, w = kw["height"], kw["width"]
+    assert len(captured) > 2
+    for (cargs, ckw), fb_in, args, fb_out in captured:
+        (view_pos, ndc, radius, ids, keep, proj, h, w, footprint, voronoi,
+         out_size) = args
+        assert footprint == 1
+        assert ckw["depth"] is not None and ckw["coarse"] is not None
         plane_in = tsplat.Framebuffer(fb_in)
         depth = tsplat.framebuffer_depth(plane_in, h, w)
-        keep, _, view_pos, ndc, radius, _, _ = (
+        want_keep, _, want_vp, want_ndc, want_radius, _, _ = (
             tkernel.cull_classify_reference(
-                positions, hier_base, valid, view, proj, cam_pos, spacings,
-                fars, sbd, maxh, thresholds, w, h, depth=depth,
-                coarse=tkernel.coarse_depth_grid(depth)))
-        rows = np.flatnonzero(keep.numpy())
+                *cargs, depth=depth, coarse=tkernel.coarse_depth_grid(depth)))
+        assert torch.equal(keep, want_keep)
+        for got_t, want_t in ((view_pos, want_vp), (ndc, want_ndc),
+                              (radius, want_radius)):
+            assert bits_equal(got_t.numpy(), want_t.numpy())
+        rows = np.flatnonzero(want_keep.numpy())[:out_size]
         want_d, want_i = oracle_raster(
             plane_in.depth.numpy(), plane_in.point_id.numpy().astype(np.int64),
-            *oracle_fragments(view_pos.numpy()[rows], ndc.numpy()[rows],
-                              radius.numpy()[rows], ids.numpy()[rows],
-                              proj.numpy(), h, w, 1, kw["voronoi"]))
+            *oracle_fragments(want_vp.numpy()[rows], want_ndc.numpy()[rows],
+                              want_radius.numpy()[rows], ids.numpy()[rows],
+                              proj.numpy(), h, w, 1, voronoi))
         got = tsplat.Framebuffer(fb_out)
         assert np.array_equal(got.point_id.numpy(), want_i)
         assert bits_equal(got.depth.numpy(),
@@ -1363,14 +1412,14 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("seed", [0, 1, 2])
     def test_bucket_kernel_matches_plain_on_random_tables(self, cuda_device,
                                                           seed):
-        """One launch over a random table of segments (windows up to the
-        kernel's limit, caps that bite and caps that do not, tails, empty
-        segments, shuffled) against the plain loop."""
+        """One launch over a random table of segments (windows of 1 to 257
+        px, caps that bite and caps that do not, tails, empty segments,
+        shuffled) against the plain loop."""
         w, h, n = 640, 360, 6000
         rng = np.random.default_rng(seed)
         ks = [int(k) for k in rng.choice(
             [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 31, 32, 33, 64, 65, 100,
-             tsplat.MAX_WINDOW], 12, replace=False)]
+             128, 129, 257], 12, replace=False)]
         view_pos, ndc, radius, ids, proj = splat_rows(seed, n, w, h, 12.0)
         rung = rng.integers(-1, len(ks), n).astype(np.int32)
         rung[rung == 3] = -1  # an empty rung
@@ -1422,9 +1471,11 @@ class TestKernelsOnCard:
         assert torch.equal(fb_k.packed, fb_p.packed)
 
     def test_footprint_one_bucket_pass_matches_plain(self, cuda_device):
-        """At footprint 1 a bucket pass is one K1 and one K2 launch (one
-        k = 1 segment over every kept row) and equals its plain twin,
-        splats of every rung of the ladder included."""
+        """The reference's bucket megakernel at footprint 1 (which the
+        renderer leaves to the multi-dispatch arm there, as the
+        reference's does): one K1 and one K2 launch (the 1-px rung, the
+        capped overflow rungs and their 1-px tails) equal to its plain
+        twin, splats of every rung of the ladder included."""
         arrays, depth, (w, h) = cull_scene(29, n=1 << 15)
         overs = (2, 3, 4, 5, 6, 7, 8, 9, 17, 33, 65)
         thr = as_t(np.array([k / 2 for k in (1,) + overs],

@@ -71,12 +71,16 @@ def turned(cam, meta, side: float):
 
 
 # name: (points, camera); the reference's own test scenes
-# (test_render_kernel.py:547, :798, :491)
+# (test_render_kernel.py:547, :798, :491), and one of near splats
 SCENES = {
     "cube": (lambda: cube_points(17, 20_000), aabb_camera),
     "corridor": (corridor_points, corridor_camera),
     "small": (lambda: cube_points(41, 5_000),
               lambda meta: aabb_camera(meta, back=0.5)),
+    # the camera inside the cube's box: splats 4-20 px in half-extent,
+    # for the footprints above the ladder's 65 px
+    "near": (lambda: cube_points(43, 1_500),
+             lambda meta: aabb_camera(meta, back=-0.5)),
 }
 
 
@@ -155,7 +159,7 @@ def scenes(tmp_path_factory):
     return get
 
 
-POSES = {"steady": ("view",) * 4,
+POSES = {"steady": ("view",) * 4, "twice": ("view",) * 2,
          "jump": ("turned", "turned", "view", "view"),
          "jump3": ("turned", "turned", "view")}
 

@@ -1,0 +1,465 @@
+"""A/B of the port's hand-written kernels against a parent commit's, on one
+CUDA card, in one process.
+
+Every source is built into a shared library of its own with nvcc and the
+flags of the port's ``ops/runtime.py`` (plus ``-shared``, and ``-Xptxas
+-v``, whose register lines it prints), all builds at once; each library
+must give its plain version's result bit for bit before it is timed.
+Then the libraries are timed parent, the others, the others in reverse,
+parent, in this one process: device time a launch by ``torch.profiler``
+(``chip_smoke.device_kernel_ms``). One JSON line a list or kernel, with
+the card's ``nvidia-smi`` name and power limit. Needs a card; imports
+neither ``jax`` nor ``point_cloud_tpu``. ``--parent`` is a parent commit's
+``csrc`` directory:
+
+    git archive <parent> point_cloud_tpu_torch/csrc | \\
+        tar -x -C .chip_work/parent
+    P=.chip_work/parent/point_cloud_tpu_torch/csrc
+
+``merge``: the sorted raster's merge kernel (K4, ``sorted_merge.cu``),
+this tree's once for each variant of its constants ``kUnroll`` and
+``kInFlightBytes`` that ``--variants`` names (``U:KB`` sets ``kUnroll =
+U`` and ``kInFlightBytes = KB << 10``), on three lists of ``--rows`` rows
+that ``sort4`` orders on the card, made from ``--seed``:
+
+- ``dense``: pixels at random over 1280x720, no ``_NO_ID`` row, so
+  nearly every pixel wins;
+- ``tail``: ``--valid`` rows at random pixels below ``--tail-pixels``,
+  the rest ``_NO_ID`` (K3's padding), the shape of the sorted arm's
+  largest bucket (the defaults are its ``valid_rows`` and ``winners`` in
+  ``chip_smoke.py`` phase 7);
+- ``scan``: the dense list merged into a one-pixel plane, so only
+  pixel 0's run wins: the pixel column's read alone.
+
+Each launch runs after an L2 flush and the plane's copy, beside the plain
+version's event time and the byte bound ``chip_smoke.merge_bound_ms`` of
+the valid prefix. The first variant is also timed with the device's L2
+fetch granularity set to 32 bytes, then set back
+(``cudaLimitMaxL2FetchGranularity``): how much of a winner's time is the
+sectors it fetches.
+
+    python tools/kernel_ab.py merge --parent $P --variants 4:64 2:64
+
+``frame``: the frame's cull (K1, ``cull.cu``) and raster (K2,
+``splat.cu``), built together. It converts the chip smoke's cloud
+(``chip_smoke.py`` phase 4: ``synth_cloud`` seed 0 through the CLI's
+``--native``), renders phase 5's first frame at 1280x720 with default
+settings and ``--footprint``, and takes the frame's largest bucket: K1 is
+timed from a flushed L2, K2 over the bucket's segment table
+(``splat.bucket_segments``) from the bucket's input plane. A parent whose
+K2 takes the table by value as four host arrays (``kMaxSegments`` in its
+``splat.cu``, at most 32 segments and 32 rungs: footprints up to 28) is
+bound so.
+
+    python tools/kernel_ab.py frame --parent $P --footprint 5
+
+``--alt NAME=PATH`` adds another source (``merge``: a ``sorted_merge.cu``;
+``frame``: a directory with ``cull.cu`` and ``splat.cu``) with this
+tree's C entry points, timed beside the others: a candidate change.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "point_cloud_tpu_torch" / "csrc"
+WIDTH, HEIGHT = 1280, 720
+
+
+def build_all(sources: dict, out_dir: Path) -> dict:
+    """Each ``name: [source paths]`` built into its own shared library,
+    every nvcc at once; the libraries by name, after printing each
+    kernel's register line."""
+    from point_cloud_tpu_torch.ops.runtime import NVCC_FLAGS, _nvcc
+
+    nvcc, procs = _nvcc(), {}
+    for name, srcs in sources.items():
+        lib = out_dir / f"lib_ab_{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(lib),
+             *map(str, srcs)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{err}")
+        regs = [ln.split(":", 1)[-1].strip() for ln in err.splitlines()
+                if "registers" in ln]
+        print(f"{name}: {' | '.join(regs)}", flush=True)
+        libs[name] = ctypes.CDLL(str(path))
+    return libs
+
+
+def interleaved(names: list, time_one) -> dict:
+    """``time_one(name)`` for every library, in the order names, then
+    names reversed: {name: [two times]}."""
+    runs = {name: [] for name in names}
+    for name in names + names[::-1]:
+        runs[name].append(time_one(name))
+    return runs
+
+
+# --- merge: K4 ---------------------------------------------------------------
+
+
+def variant_source(text: str, unroll: int, kb: int) -> str:
+    for name, value in (("kUnroll", unroll), ("kInFlightBytes", kb << 10)):
+        text, hits = re.subn(rf"constexpr int {name} = [^;]+;",
+                             f"constexpr int {name} = {value};", text)
+        if hits != 1:
+            raise SystemExit(f"sorted_merge.cu: no single {name} to set")
+    return text
+
+
+def merge_launcher(torch, lib, fb, cols):
+    pix, bits, ids = cols
+
+    def launch():
+        rc = lib.pc_sorted_merge(
+            fb.data_ptr(), fb.shape[0], pix.data_ptr(), bits.data_ptr(),
+            ids.data_ptr(), pix.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"pc_sorted_merge: cudaError {rc}")
+    return launch
+
+
+def l2_fetch_limit(torch):
+    """The device's cudaLimitMaxL2FetchGranularity in bytes, and a
+    function that sets it (through the toolkit's runtime library)."""
+    from point_cloud_tpu_torch.ops.runtime import _nvcc
+
+    rt = ctypes.CDLL(str(Path(_nvcc()).parent.parent / "lib64"
+                         / "libcudart.so"))
+    limit = 0x05  # cudaLimitMaxL2FetchGranularity
+    torch.cuda.synchronize()
+    value = ctypes.c_size_t()
+    if rt.cudaDeviceGetLimit(ctypes.byref(value), limit) != 0:
+        raise RuntimeError("cudaDeviceGetLimit failed")
+
+    def set_limit(n: int) -> None:
+        torch.cuda.synchronize()
+        if rt.cudaDeviceSetLimit(limit, ctypes.c_size_t(n)) != 0:
+            raise RuntimeError("cudaDeviceSetLimit failed")
+    return value.value, set_limit
+
+
+def make_lists(torch, np, splat, rows: int, valid: int, tail_pixels: int,
+               seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    n_pix = WIDTH * HEIGHT
+
+    def sorted_cols(pix):
+        bits = rng.integers(0, 0x3F800001, rows).astype(np.int32)
+        ids = rng.integers(1, 1 << 23, rows).astype(np.int32)
+        bits[pix == int(splat._NO_ID)] = int(splat._NO_ID)
+        return splat._sort4_frags(*(torch.from_numpy(c).cuda()
+                                    for c in (pix, bits, ids)))[:3]
+
+    dense = sorted_cols(rng.integers(0, n_pix, rows).astype(np.int32))
+    tail_pix = np.full(rows, int(splat._NO_ID), np.int32)
+    tail_pix[:valid] = rng.integers(0, tail_pixels, valid)
+    return {"dense": (dense, n_pix), "tail": (sorted_cols(tail_pix), n_pix),
+            "scan": (dense, 1)}
+
+
+def ab_merge(args, torch, np, cs, smi: str) -> None:
+    from point_cloud_tpu_torch.render import splat
+
+    text = (CSRC / "sorted_merge.cu").read_text()
+    sources = {"parent": [args.parent / "sorted_merge.cu"]}
+    for v in args.variants:
+        unroll, kb = (int(x) for x in v.split(":"))
+        path = args.out / f"sorted_merge_u{unroll}_{kb}k.cu"
+        path.write_text(variant_source(text, unroll, kb))
+        sources[f"u{unroll}_{kb}k"] = [path]
+    for alt in args.alt:
+        name, path = alt.split("=", 1)
+        sources[name] = [Path(path)]
+    libs = build_all(sources, args.out)
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    for lib in libs.values():
+        lib.pc_sorted_merge.restype = ctypes.c_int
+        lib.pc_sorted_merge.argtypes = [ptr, i64, ptr, ptr, ptr, i64, ptr]
+    names = list(libs)  # parent first, then the variants
+
+    lists = make_lists(torch, np, splat, args.rows, args.valid,
+                       args.tail_pixels, args.seed)
+    flush = cs.l2_flush(torch)
+    default_fetch, set_fetch = l2_fetch_limit(torch)
+    for list_name, (cols, n_pix) in lists.items():
+        fb0 = splat.make_framebuffer(1, n_pix, "cuda").packed
+        fb0[::3] = (0x3F000000 << 32) | 5  # a plane that holds words
+        want = fb0.clone()
+        splat.sorted_merge_reference(want, *cols)
+        pix = cols[0]
+        valid = int((pix != int(splat._NO_ID)).sum())
+        first = torch.ones_like(pix, dtype=torch.bool)
+        first[1:] = pix[1:] != pix[:-1]
+        winners = int((first & (pix != int(splat._NO_ID)) & (pix >= 0)
+                       & (pix < n_pix)).sum())
+        fb = fb0.clone()
+        for name in names:
+            fb.copy_(fb0)
+            merge_launcher(torch, libs[name], fb, cols)()
+            torch.cuda.synchronize()
+            if not torch.equal(fb, want):
+                raise AssertionError(f"{name} != plain on the {list_name} "
+                                     "list")
+
+        def timed(fn):
+            return cs.device_kernel_ms(
+                torch, lambda: (flush(), fb.copy_(fb0), fn()),
+                {"sorted_merge_kernel": 1}, reps=args.reps)
+
+        def plain():
+            fb.copy_(fb0)
+            splat.sorted_merge_reference(fb, *cols)
+
+        p1 = cs.cuda_ms(plain, reps=3, setup=flush)
+        runs = interleaved(names, lambda name: timed(
+            merge_launcher(torch, libs[name], fb, cols)))
+        p2 = cs.cuda_ms(plain, reps=3, setup=flush)
+        # the first variant again with the L2 fetching 32-byte sectors (a
+        # device limit this tool sets only here; the port never does)
+        fetch = {}
+        for limit in (32, default_fetch):
+            set_fetch(limit)
+            fetch[limit] = timed(merge_launcher(torch, libs[names[1]], fb,
+                                                cols))
+        bound, by = cs.merge_bound_ms(valid, pix.shape[0], winners)
+        cs.emit({"list": list_name, "rows": int(pix.shape[0]),
+                 "valid_rows": valid, "winners": winners, "n_pix": n_pix,
+                 "bound_ms": bound, "bound_by": by,
+                 "plain_ms_runs": [p1, p2], "ms_runs": runs,
+                 "l2_fetch_bytes_default": default_fetch,
+                 f"{names[1]}_ms_by_l2_fetch_bytes": fetch,
+                 "share_of_bound": {k: bound / (sum(v) / len(v))
+                                    for k, v in runs.items()},
+                 "device": smi})
+
+
+# --- frame: K1 and K2 --------------------------------------------------------
+
+
+def bind_frame(lib, by_value: bool) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pc_cull_classify.restype = ctypes.c_int
+    lib.pc_cull_classify.argtypes = (
+        [ptr] * 8 + [i32, i32, ptr, ptr, i32, ptr, i32, i32, i32]
+        + [ptr] * 7 + [i64, ptr])
+    lib.pc_splat_raster.restype = ctypes.c_int
+    lib.pc_splat_raster.argtypes = ([ptr] * 9 + [i32] * 4
+                                    + [ptr] * (5 if by_value else 2))
+
+
+def cull_launcher(torch, lib, cargs, ckw):
+    """A launch of ``lib``'s K1 on the bucket's inputs (the arguments of
+    ``kernel.cull_classify``) and its seven outputs."""
+    (positions, hier_base, valid, view, proj, cam_pos, spacings, fars, sbd,
+     maxh, thresholds, width, height) = cargs
+    depth, coarse = ckw["depth"], ckw["coarse"]
+    n, dev = positions.shape[0], positions.device
+    outs = (torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty((n, 4), dtype=torch.float32, device=dev),
+            torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    null = ctypes.c_void_p(None)
+
+    def launch():
+        rc = lib.pc_cull_classify(
+            positions.data_ptr(), hier_base.data_ptr(), valid.data_ptr(),
+            view.data_ptr(), proj.data_ptr(), cam_pos.data_ptr(),
+            spacings.data_ptr(), fars.data_ptr(), int(bool(sbd)), int(maxh),
+            depth.data_ptr() if depth is not None else null,
+            coarse.data_ptr() if coarse is not None else null,
+            coarse.shape[1] if coarse is not None else 0,
+            thresholds.data_ptr(), thresholds.numel(), width, height,
+            *(t.data_ptr() for t in outs), n,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"pc_cull_classify: cudaError {rc}")
+    return launch, outs
+
+
+def raster_launcher(torch, splat, lib, by_value: bool, fb, inp, segments):
+    """A launch of ``lib``'s K2 over ``segments`` into the plane ``fb``."""
+    if by_value:
+        table = tuple((ctypes.c_int * len(segments))(*(int(v) for v in col))
+                      for col in zip(*segments))
+    else:
+        table = (ctypes.c_void_p(splat._device_table("segments", tuple(
+            (s.k, s.rung, s.cap, int(s.tail)) for s in segments),
+            fb.device).data_ptr()),)
+
+    def launch():
+        rc = lib.pc_splat_raster(
+            fb.data_ptr(), inp["view_pos"].data_ptr(), inp["ndc"].data_ptr(),
+            inp["radius"].data_ptr(), inp["point_id"].data_ptr(),
+            inp["perm"].data_ptr(), inp["offsets"].data_ptr(),
+            inp["counts"].data_ptr(), inp["projection"].data_ptr(),
+            inp["width"], inp["height"], int(bool(inp["voronoi"])),
+            len(segments), *table, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"pc_splat_raster: cudaError {rc}")
+    return launch
+
+
+def largest_bucket(torch, np, cs, footprint: int):
+    """(input plane, arguments, keywords) of ``render_bucket_pass`` for
+    the largest bucket of phase 5's first frame at ``footprint``."""
+    from point_cloud_tpu_torch.core.point import PointBatch
+    from point_cloud_tpu_torch.io.ply import write_ply
+    from point_cloud_tpu_torch.models.synth import synth_cloud
+    from point_cloud_tpu_torch.render import splat
+    from point_cloud_tpu_torch.render.renderer import RenderSettings
+    from point_cloud_tpu_torch.viewer import Viewer
+
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(3)
+        write_ply(tmp / "cloud.ply", PointBatch(
+            synth_cloud(cs.CLOUD_POINTS, seed=0),
+            rng.integers(0, 256, (cs.CLOUD_POINTS, 4), dtype=np.uint8)))
+        cs.run_cli("--native", tmp / "cloud.ply", tmp / "store")
+        viewer = Viewer(RenderSettings(width=cs.FRAME_W, height=cs.FRAME_H,
+                                       footprint=footprint), device="cuda")
+        viewer.load_metadata(tmp / "store" / "metadata.json")
+        cs.settle(viewer)
+        captured = []
+        bucket_pass = splat.render_bucket_pass
+
+        def capture(framebuffer, *a, **kw):
+            captured.append((framebuffer.packed.clone(), a, kw))
+            return bucket_pass(framebuffer, *a, **kw)
+
+        splat.render_bucket_pass = capture
+        try:
+            viewer.render()
+        finally:
+            splat.render_bucket_pass = bucket_pass
+        viewer.close()
+    return max(captured, key=lambda e: e[1][0].shape[0])
+
+
+def ab_frame(args, torch, np, cs, smi: str) -> None:
+    from point_cloud_tpu_torch.render import kernel, splat
+
+    dirs = {"parent": args.parent, "new": CSRC}
+    dirs.update((name, Path(d)) for name, d in
+                (alt.split("=", 1) for alt in args.alt))
+    libs = build_all({name: [d / "cull.cu", d / "splat.cu"]
+                      for name, d in dirs.items()}, args.out)
+    by_value = {name: "kMaxSegments" in (d / "splat.cu").read_text()
+                for name, d in dirs.items()}
+    for name, lib in libs.items():
+        bind_frame(lib, by_value[name])
+
+    big = largest_bucket(torch, np, cs, args.footprint)
+    cargs, ckw = cs.cull_inputs(splat, kernel, *big)
+    inp = cs.raster_inputs(splat, kernel, *big)
+    segments = splat.bucket_segments(inp["rungs"], inp["footprint"],
+                                     inp["view_pos"].shape[0])
+    fb_in = big[0]
+    flush = cs.l2_flush(torch)
+    want_cull = kernel.cull_classify_reference(*cargs, **ckw)
+    want_fb = fb_in.clone()
+    splat.splat_raster_segments_reference(
+        want_fb, inp["view_pos"], inp["ndc"], inp["radius"],
+        inp["point_id"], inp["perm"], inp["offsets"], inp["counts"],
+        inp["projection"], inp["height"], inp["width"], segments,
+        inp["voronoi"])
+    culls, rasters = {}, {}
+    for name, lib in libs.items():
+        launch, outs = cull_launcher(torch, lib, cargs, ckw)
+        launch()
+        torch.cuda.synchronize()
+        if not all(cs.same_bits(torch, g, r) for g, r in zip(outs,
+                                                                want_cull)):
+            raise AssertionError(f"{name}'s K1 != plain")
+        culls[name] = launch
+        fb = fb_in.clone()
+        launch = raster_launcher(torch, splat, lib, by_value[name], fb, inp,
+                                 segments)
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(fb, want_fb):
+            raise AssertionError(f"{name}'s K2 != plain")
+        rasters[name] = (launch, fb)
+
+    def k2_ms(name):
+        launch, fb = rasters[name]
+        return cs.device_kernel_ms(torch, lambda: (fb.copy_(fb_in), launch()),
+                                   {"splat_raster_kernel": 1}, reps=args.reps)
+
+    names = list(libs)
+    k1 = interleaved(names, lambda name: cs.device_kernel_ms(
+        torch, lambda: (flush(), culls[name]()), {"cull_classify_kernel": 1},
+        reps=args.reps))
+    k2 = interleaved(names, k2_ms)
+    common = {"footprint": args.footprint, "n": int(big[1][0].shape[0]),
+              "rungs": len(inp["rungs"]), "segments": len(segments),
+              "order": names + names[::-1], "device": smi}
+    for kname, runs in (("cull_classify", k1), ("splat_raster", k2)):
+        mean = {name: sum(v) / len(v) for name, v in runs.items()}
+        cs.emit({"kernel": kname, **common, "ms_runs": runs,
+                 "over_parent": {name: m / mean["parent"]
+                                 for name, m in mean.items()},
+                 "equal_to_plain": True})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="kernel", required=True)
+    merge = sub.add_parser("merge", help="K4, sorted_merge.cu")
+    merge.add_argument("--variants", nargs="+", default=["4:64"],
+                       help="U:KB, kUnroll and kInFlightBytes in KiB")
+    merge.add_argument("--rows", type=int, default=1 << 26)
+    merge.add_argument("--valid", type=int, default=14_828_593)
+    merge.add_argument("--tail-pixels", type=int, default=312_246)
+    merge.add_argument("--seed", type=int, default=0)
+    frame = sub.add_parser("frame", help="K1 and K2, cull.cu and splat.cu")
+    frame.add_argument("--footprint", type=int, default=5)
+    for p in (merge, frame):
+        p.add_argument("--parent", required=True, type=Path,
+                       help="a parent commit's csrc directory")
+        p.add_argument("--alt", nargs="*", default=[],
+                       help="NAME=PATH: another source with this tree's "
+                       "entry points, built and timed beside the others")
+        p.add_argument("--reps", type=int, default=20)
+        p.add_argument("--out", type=Path, default=ROOT / ".chip_work" / "ab")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    args.out.mkdir(parents=True, exist_ok=True)
+    (ab_merge if args.kernel == "merge" else ab_frame)(args, torch, np, cs,
+                                                      smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
