@@ -18,16 +18,27 @@ use. Imports no JAX. Phases, one JSON line each:
    include every bucket the slice sorts (2^15..2^21 at batch 2^18);
 3. pass: ``get_pipeline("conversion", n=2^20)`` and ``dedup_pass_light``
    on the card against the same inputs through the port on the CPU,
-   exact equality, and the pass times on the card;
+   exact equality, also for the light pass on every finite shape of
+   ``PASS_SHAPES`` and the resident pass at 2^16; B2 (``quantize_hash``,
+   also in its gather mode) and B3 (``mark_pack``) bit-exact against
+   their plain versions on the card at every length 2^15..2^22 over
+   ``PASS_SHAPES``, forced hash collisions and a resident mix; a
+   ``torch.profiler`` window over one light and one resident pass whose
+   device work must be B2, ``sort4``'s kernels and B3 only (plus copies
+   and B3's memset: no scan); B2, B3, the light pass and its plain twin
+   timed at 2^18 and 2^20 (device time, CUDA events, bounds);
 4. slice: a 2^23-point LiDAR-like cloud (the port's ``synth_cloud``)
    written to PLY and converted by the port's CLI at batch 2^18, in
    subprocesses, three times: ``--device`` (the Python-cell
    ``PipelinedConverter``), ``--device-native`` (the C++ merge engine)
    and ``--native`` (the C++ host engine alone). The three stores must be
    byte-identical, both device runs must have launched the sort kernel,
-   and every length they sorted must be one that phase 2 checked. Each
-   subprocess counts its launches from zero, so its count is its main
-   path's and no other.
+   and every length they sorted must be one that phase 2 checked; every
+   pass of theirs must be B2, ``sort4``, B3 (the three launch counts
+   equal). Each subprocess counts its launches from zero, so its count
+   is its main path's and no other. One more ``--device-native``
+   conversion in this process under ``torch.profiler`` gives the card's
+   busy share (its store checked too).
 
 5. frame: the ``--device-native`` store of phase 4 through the port's
    ``Viewer`` at 1280x720, default settings. 5a captures every bucket of
@@ -68,8 +79,9 @@ use. Imports no JAX. Phases, one JSON line each:
    timed there and on the largest bucket from a flushed L2.
 8. mesh, the multi-device path, on four logical shards of the one card
    (``make_mesh(devices=[cuda:0] * 4)``): (a) phase 4's PLY through
-   ``MeshConverter`` from zero ``sort4`` counts, the first call at every
-   sorted length held against ``sort4_reference``, the store
+   ``MeshConverter`` from zero ``sort4``, B2 and B3 counts, the first
+   call at every sorted length held against ``sort4_reference``, one B2
+   launch for every ``_hash_sort`` and ``_hashes_for`` call, the store
    byte-identical to phase 4's ``--native`` one; ``--mesh 1`` through the
    CLI, the same; a forced-spill pass (capacity 1, 2^18 points) against
    the host ``Converter``; the owner-sharded pass timed alone at 2^20
@@ -109,7 +121,10 @@ included), ``plain_ms`` the event time of the plain version, and
 (``bound_memory``: every byte counted once from HBM; a reading below it
 means the inputs were still in the 50 MB L2), with ``sort4`` 16 B read
 and 16 B written a row, ``cull_classify`` as ``cull_bound_ms`` says and
-``sorted_merge`` the rows up to the ``_NO_ID`` tail (``merge_bound_ms``).
+``sorted_merge`` the rows up to the ``_NO_ID`` tail (``merge_bound_ms``),
+``quantize_hash`` (B2) 29 B a row and ``mark_pack`` (B3) what
+``b3_bytes`` counts on the run's sorted columns, each against its
+operations at the card's f32 rate.
 Every timed block starts on a card held busy for WARM_S seconds (an idle
 H100 clocks 840 of 1,980 MHz), and K1, K3 and K4 are timed from an L2
 flushed before each call, as a frame finds it. ``splat_raster``'s is
@@ -384,9 +399,245 @@ def sort4_library_ms(torch, cols, sorted_cols, reps: int = 7) -> float:
     return cuda_ms(call, reps=reps)
 
 
-def phase_pass(torch, np, dedup, get_pipeline) -> dict:
+# --- phase 3: the conversion pass, B2 -> sort4 -> B3 ----------------------
+
+PASS_LOG_N = tuple(range(15, 23))  # every bucket the slice and mesh sort
+PASS_TIMED_LOG_N = (18, 20)
+PASS_FINITE = ("synth", "uniform", "all_equal", "lattice", "far",
+               "saturate")  # models.synth.PASS_SHAPES but "nonfinite"
+PASS_CPU_LOG_N = 16  # the light pass on the card against the CPU's
+# Bytes a row each kernel must move (each input read once, each output
+# written once): B2 reads 12 B of position and 1 B of valid and writes the
+# four 4-byte sort columns; its gather mode reads a 4 B source and 12 B of
+# position and writes the columns and the 12 B gathered position. B3's
+# depend on the data (b3_bytes).
+B2_BYTES_PER_ROW = 29
+B2_GATHER_BYTES_PER_ROW = 44
+# Operations a row, counted from the kernels' source (an IEEE division or
+# square root, a floor, a compare, a select, an integer multiply, add,
+# shift or logic operation each one): B2's hex math ~45 f32, seven
+# saturating casts ~28, the offset 5, the two hashes and their masks ~47;
+# B3's keys ~53 on a row that shares its hash pair, the near-tie test ~12,
+# the neighbour compares and the run bits ~35 on every row. Over the
+# H100's 67 TFLOP/s f32 rate (PEAK_OPS_PER_S) both are a fifth or less of
+# their byte time.
+B2_OPS_PER_ROW = 125
+B3_OPS_PER_ROW = 100
+PASS_KERNELS = {"b2": {"quantize_hash_kernel": 1},
+                "b3": {"mark_pack_tiles": 1, "mark_pack_resolve": 1}}
+
+
+def bits_err(torch, got, ref) -> int:
+    """Largest |difference| of the int32 bits of two tuples of tensors (0
+    when bit-identical; f32 tensors compare as their bits)."""
+    return max(int((g.view(torch.int32).long() - r.view(torch.int32).long())
+                   .abs().max()) for g, r in zip(got, ref))
+
+
+def collide_columns(torch, ch, sh):
+    """Forced hash collisions (tests/test_torch_dedup.py's ``_hash_cols``
+    cut to its low bit): every real cell hash 0, every slot hash 0 or 1."""
+    real = ch != I32_MAX
+    return (torch.where(real, torch.zeros_like(ch), ch),
+            torch.where(real, sh & 1, sh))
+
+
+def pass_bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
+def b3_bytes(torch, ch_s, sh_s) -> tuple[int, int]:
+    """(bytes, keyed rows) B3 must move on these sorted columns: every
+    row's cell hash, slot hash and perm read and packed row written; the
+    distance bits of a row that shares its hash pair with the row before
+    (the near-tie test reads its pair); the 12 B position of every real
+    row that shares its hash pair with a neighbour (its keys)."""
+    same = torch.zeros_like(ch_s, dtype=torch.bool)
+    same[1:] = (ch_s[1:] == ch_s[:-1]) & (sh_s[1:] == sh_s[:-1])
+    valid = ch_s != I32_MAX
+    audit = int((same & valid).sum())
+    near = same.clone()
+    near[:-1] |= same[1:]
+    keyed = int((near & valid).sum())
+    n = ch_s.shape[0]
+    return 16 * n + 4 * audit + 12 * keyed, keyed
+
+
+def check_pass_kernels(torch, np, dedup, qh, mp, sort) -> dict:
+    """B2 and B3 against their plain versions on the card, bit for bit,
+    at every length of PASS_LOG_N over PASS_SHAPES, forced collisions (B3)
+    and the resident gather (B2's gather mode, then B3 on its rows)."""
     from point_cloud_tpu_torch.core.metadata import MetadataConfig
-    from point_cloud_tpu_torch.models.synth import synth_cloud
+    from point_cloud_tpu_torch.models.synth import (
+        PASS_SHAPES, pass_case, resident_case,
+    )
+
+    config = MetadataConfig()
+    checked, worst = [], {"b2": 0, "b3": 0}
+    for log_n in PASS_LOG_N:
+        n = 1 << log_n
+        cs = config.cell_size(log_n % 8)
+        scs = config.sub_cell_size(cs)
+        for kind in (*PASS_SHAPES, "collide", "resident"):
+            if kind == "resident":
+                res, src, ext = (torch.from_numpy(a).cuda() for a in
+                                 resident_case(n, seed=log_n))
+                scalars = dedup.pass_args(np.zeros((1, 3), np.float32),
+                                          np.ones(1, bool), cs, scs,
+                                          "cuda")[2:]
+                got = qh.quantize_hash_resident(res, src, ext, *scalars)
+                pos, valid = dedup.resident_rows_reference(res, src, ext)
+                ref = dedup.quantize_hash_reference(pos, valid, *scalars)
+                ref += (pos,)
+            else:
+                shape = "uniform" if kind == "collide" else kind
+                args = dedup.pass_args(*pass_case(shape, n, seed=log_n),
+                                       cs, scs, "cuda")
+                pos, scalars = args[0], args[2:]
+                got = qh.quantize_hash(*args, keys=True)
+                ref = dedup.quantize_hash_reference(*args, keys=True)
+            torch.cuda.synchronize()
+            err = bits_err(torch, got, ref)
+            worst["b2"] = max(worst["b2"], err)
+            if err:
+                raise AssertionError(f"B2 != plain at 2^{log_n} {kind}")
+            cols = got[:4]
+            if kind == "collide":
+                cols = (*collide_columns(torch, *cols[:2]), *cols[2:])
+            cols = sort.sort4(*cols)
+            b3 = mp.mark_pack(*cols, pos, *scalars)
+            torch.cuda.synchronize()
+            err = bits_err(torch, (b3,), (dedup.mark_pack_reference(
+                *cols, pos, *scalars),))
+            worst["b3"] = max(worst["b3"], err)
+            if err:
+                raise AssertionError(f"B3 != plain at 2^{log_n} {kind}")
+            if kind == "all_equal" and int(((b3 >> 29) & 1).sum()) != n:
+                raise AssertionError("all_equal: one run, not all suspect")
+            checked.append(f"2^{log_n}:{kind}")
+    return {"checked": checked, "max_abs_err": worst}
+
+
+def pass_kernel_names(torch, fns) -> dict:
+    """{device event name: count} of one call of each of ``fns`` under
+    torch.profiler, after a warm-up call of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def check_pass_profile(torch, np, dedup, n: int) -> dict:
+    """One light pass and one resident pass on the card: their device
+    work must be B2, sort4's kernels and B3 (plus copies and B3's 4-byte
+    ticket memset), each of those at least once, and no scan."""
+    from point_cloud_tpu_torch.core.metadata import MetadataConfig
+    from point_cloud_tpu_torch.models.synth import pass_case, resident_case
+
+    config = MetadataConfig()
+    cs = config.cell_size(0)
+    scs = config.sub_cell_size(cs)
+    args = dedup.pass_args(*pass_case("synth", n, seed=5), cs, scs,
+                           "cuda")
+    res = [torch.from_numpy(a).cuda()
+           for a in resident_case(n, seed=6)]
+    names = pass_kernel_names(torch, [
+        lambda: dedup.dedup_pass_light(*args),
+        lambda: dedup.dedup_pass_resident(*res, *args[2:])])
+    ours = ("quantize_hash_kernel", "sort4_tile", "sort4_merge",
+            "mark_pack_tiles", "mark_pack_resolve")
+    other = {k: v for k, v in names.items()
+             if not any(o in k for o in ours)
+             and not k.startswith(("Memcpy", "Memset"))}
+    if other:
+        raise AssertionError(f"the pass ran other device work: {other}")
+    missing = [o for o in ours if not any(o in k for k in names)]
+    if missing:
+        raise AssertionError(f"the profile shows no {missing}: {names}")
+    if any("cum" in k.lower() or "scan" in k.lower() for k in names):
+        raise AssertionError(f"a scan kernel ran in the pass: {names}")
+    return names
+
+
+def time_pass(torch, np, dedup, qh, mp, sort, n: int) -> dict:
+    """B2, B3, the light pass and its plain twin at ``n`` rows of the
+    LiDAR-like cloud at hierarchy 0: the kernels' own device time
+    (``device_kernel_ms``), CUDA event times of the wrappers and of the
+    plain versions on the card (plain, kernel, kernel, plain), and the
+    bounds from this input."""
+    from point_cloud_tpu_torch.core.metadata import MetadataConfig
+    from point_cloud_tpu_torch.models.synth import pass_case
+
+    config = MetadataConfig()
+    cs = config.cell_size(0)
+    args = dedup.pass_args(*pass_case("synth", n, seed=1), cs,
+                           config.sub_cell_size(cs), "cuda")
+    pos, scalars = args[0], args[2:]
+    cols = sort.sort4(*qh.quantize_hash(*args))
+    b3_moved, keyed = b3_bytes(torch, cols[0], cols[1])
+    sort_kernels = sort4_kernels(n)
+
+    def plain_pass():
+        return dedup.mark_pack_reference(
+            *sort.sort4(*dedup.quantize_hash_reference(*args)), pos,
+            *scalars)
+
+    out = {}
+    for name, fn, plain, kernels in (
+            ("b2", lambda: qh.quantize_hash(*args),
+             lambda: dedup.quantize_hash_reference(*args), PASS_KERNELS["b2"]),
+            ("b3", lambda: mp.mark_pack(*cols, pos, *scalars),
+             lambda: dedup.mark_pack_reference(*cols, pos, *scalars),
+             PASS_KERNELS["b3"]),
+            ("light_pass", lambda: dedup.dedup_pass_light(*args), plain_pass,
+             {**PASS_KERNELS["b2"], **sort_kernels, **PASS_KERNELS["b3"]})):
+        p1 = cuda_ms(plain)
+        w1 = cuda_ms(fn)
+        d = device_kernel_ms(torch, fn, kernels)
+        w2 = cuda_ms(fn)
+        p2 = cuda_ms(plain)
+        out[name] = {"ms": d, "wrapper_ms": statistics.median([w1, w2]),
+                     "plain_ms": statistics.median([p1, p2]),
+                     "wrapper_ms_runs": [w1, w2], "plain_ms_runs": [p1, p2]}
+    out["b2"]["bound_ms"], out["b2"]["bound_by"] = pass_bound_ms(
+        B2_BYTES_PER_ROW * n, B2_OPS_PER_ROW * n)
+    out["b3"]["bound_ms"], out["b3"]["bound_by"] = pass_bound_ms(
+        b3_moved, B3_OPS_PER_ROW * n)
+    out["b3"]["keyed_rows"] = keyed
+    out["light_pass"]["bound_ms"] = (out["b2"]["bound_ms"]
+                                     + sort4_bound_ms(n)[0]
+                                     + out["b3"]["bound_ms"])
+    out["light_pass"]["sort4_ms"] = device_kernel_ms(
+        torch, lambda: sort.sort4(*cols), sort_kernels)
+    return out
+
+
+def phase_pass(torch, np, dedup, get_pipeline) -> dict:
+    """Phase 3: the full pass (``conversion``) and the light pass on the
+    card against the CPU port; B2 and B3 against their plain versions on
+    every shape and length; a profile of the light and resident passes;
+    the kernels and the pass timed at PASS_TIMED_LOG_N."""
+    from point_cloud_tpu_torch.core.metadata import MetadataConfig
+    from point_cloud_tpu_torch.models.synth import (
+        pass_case, resident_case, synth_cloud,
+    )
+    from point_cloud_tpu_torch.ops import mark_pack as mp
+    from point_cloud_tpu_torch.ops import quantize_hash as qh
+    from point_cloud_tpu_torch.ops import sort
 
     n = 1 << 20
     fn, args = get_pipeline("conversion", n=n, seed=0, device="cuda")
@@ -409,12 +660,37 @@ def phase_pass(torch, np, dedup, get_pipeline) -> dict:
     packed = dedup.dedup_pass_light(*dargs).cpu()
     if not torch.equal(packed, dedup.dedup_pass_light(*hargs)):
         raise AssertionError("dedup_pass_light: cuda != cpu")
-    light_ms = cuda_ms(lambda: dedup.dedup_pass_light(*dargs), reps=5)
+    # the light pass on the card against the CPU's on every finite shape
+    m = 1 << PASS_CPU_LOG_N
+    for kind in PASS_FINITE:
+        case = pass_case(kind, m, seed=2)
+        got = dedup.dedup_pass_light(*dedup.pass_args(
+            *case, cs, config.sub_cell_size(cs), "cuda")).cpu()
+        if not torch.equal(got, dedup.dedup_pass_light(*dedup.pass_args(
+                *case, cs, config.sub_cell_size(cs), "cpu"))):
+            raise AssertionError(f"dedup_pass_light on {kind}: cuda != cpu")
+    res = resident_case(m, seed=3)
+    got = dedup.dedup_pass_resident(
+        *(torch.from_numpy(a).cuda() for a in res), *dargs[2:]).cpu()
+    if not torch.equal(got, dedup.dedup_pass_resident(
+            *(torch.from_numpy(a) for a in res), *hargs[2:])):
+        raise AssertionError("dedup_pass_resident: cuda != cpu")
+
+    kernels = check_pass_kernels(torch, np, dedup, qh, mp, sort)
+    names = check_pass_profile(torch, np, dedup, 1 << 18)
+    timed = {1 << log_n: time_pass(torch, np, dedup, qh, mp, sort, 1 << log_n)
+             for log_n in PASS_TIMED_LOG_N}
     result = {
         "phase": "pass", "ok": True, "n": n,
-        "conversion_pipeline_ms": full_ms, "dedup_pass_light_ms": light_ms,
+        "conversion_pipeline_ms": full_ms,
+        "dedup_pass_light_ms": timed[n]["light_pass"]["wrapper_ms"],
         "winners": int(((packed >> 30) & 1).sum()),
         "suspects": int(((packed >> 29) & 1).sum()),
+        "cpu_equal_shapes": [*PASS_FINITE, "resident"],
+        "kernels_checked": kernels["checked"],
+        "max_abs_err": kernels["max_abs_err"],
+        "profiled_device_work": names,
+        "timed": timed,
     }
     emit(result)
     return result
@@ -472,7 +748,19 @@ def sorted_lengths(run: dict, flag: str, checked_lengths) -> dict:
     return by_n
 
 
-def phase_slice(np, checked_lengths, tmp: Path) -> dict:
+def pass_launches(run: dict, flag: str) -> dict:
+    """The run's B2 and B3 launch counts; on the slice every pass is B2,
+    sort4, B3, so the three counts must agree."""
+    launches = run["launches"]
+    if not launches["quantize_hash"] == launches["mark_pack"] \
+            == launches["sort4"] > 0:
+        raise AssertionError(f"the {flag} run's passes were not B2 -> sort4 "
+                             f"-> B3: {launches}")
+    return {"quantize_hash": launches["quantize_hash"],
+            "mark_pack": launches["mark_pack"]}
+
+
+def phase_slice(torch, np, checked_lengths, tmp: Path) -> dict:
     """Phase 4, in ``tmp``; the PLY and the three stores stay there (phase
     8 converts the PLY again and compares with the ``--native`` store)."""
     from point_cloud_tpu_torch.core.point import PointBatch
@@ -489,6 +777,14 @@ def phase_slice(np, checked_lengths, tmp: Path) -> dict:
             for flag in ("--device", "--device-native", "--native")}
     for flag in ("--device", "--device-native"):
         files = same_store(tmp / "native", tmp / flag.strip("-"), flag)
+    # the card's busy share over one more --device-native conversion, in
+    # this process under torch.profiler (its store checked too)
+    from point_cloud_tpu_torch.convert.cli import main as cli_main
+
+    busy = busy_share(torch, lambda: cli_main([
+        "--device-native", "--batch-size", str(BATCH),
+        "-o", str(tmp / "profiled"), "-f", str(src)]))
+    same_store(tmp / "native", tmp / "profiled", "profiled --device-native")
     device, native_device = runs["--device"], runs["--device-native"]
     stages = device["stages"]
     result = {
@@ -501,6 +797,9 @@ def phase_slice(np, checked_lengths, tmp: Path) -> dict:
         "device_sort4_launches": device["launches"]["sort4"],
         "device_sort4_launches_by_n": sorted_lengths(
             device, "--device", checked_lengths),
+        "device_native_busy": busy,
+        "pass_launches": pass_launches(native_device, "--device-native"),
+        "device_pass_launches": pass_launches(device, "--device"),
         "device_s": device["convert_s"],
         "device_native_s": native_device["convert_s"],
         "native_s": runs["--native"]["convert_s"],
@@ -2013,6 +2312,35 @@ class SortCapture:
         return errs
 
 
+class CallCount:
+    """Counts the calls of module functions while installed: ``targets``
+    maps a module to the names of its functions to count."""
+
+    def __init__(self, targets: dict):
+        self.targets = targets
+        self.calls = {name: 0 for names in targets.values() for name in names}
+        self.real = {}
+
+    def __enter__(self):
+        for module, names in self.targets.items():
+            for name in names:
+                real = getattr(module, name)
+                self.real[(module, name)] = real
+                setattr(module, name, self._wrap(name, real))
+        return self
+
+    def _wrap(self, name, real):
+        def wrap(*args, **kwargs):
+            self.calls[name] += 1
+            return real(*args, **kwargs)
+
+        return wrap
+
+    def __exit__(self, *exc):
+        for (module, name), real in self.real.items():
+            setattr(module, name, real)
+
+
 def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
     """Phase 8a: the phase-4 PLY through MeshConverter on a four-shard mesh
     of the one card, from zero launch counts (every sort4 length of the
@@ -2026,7 +2354,7 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
     from point_cloud_tpu_torch.core.metadata import Metadata, MetadataConfig
     from point_cloud_tpu_torch.core.point import PointBatch
     from point_cloud_tpu_torch.models.synth import synth_cloud
-    from point_cloud_tpu_torch.ops import dedup, sort
+    from point_cloud_tpu_torch.ops import dedup, mark_pack, quantize_hash, sort
     from point_cloud_tpu_torch.parallel import owner_cascade
     from point_cloud_tpu_torch.parallel.dedup import shard_rows, shard_slices
     from point_cloud_tpu_torch.parallel.mesh import make_mesh
@@ -2046,15 +2374,24 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
     # the main path's run: every count starts at 0 here
     sort.launches = 0
     sort.launches_by_n.clear()
+    quantize_hash.launches = mark_pack.launches = 0
     capture = SortCapture((dedup, owner_cascade))
-    with capture, StageTimer() as timer:
+    hashes = CallCount({dedup: ("_hash_sort",),
+                        owner_cascade: ("_hashes_for",)})
+    with capture, hashes, StageTimer() as timer:
         t0 = time.perf_counter()
         convert_from_paths([tmp / "cloud.ply"], tmp / "mesh4",
                            batch_size=BATCH, converter_factory=factory)
         mesh_s = time.perf_counter() - t0
     launches, by_n = sort.launches, dict(sort.launches_by_n)
+    b2, b3 = quantize_hash.launches, mark_pack.launches
     if launches <= 0:
         raise AssertionError("the mesh conversion launched no sort4")
+    # one B2 launch for every _hash_sort (stage A) and _hashes_for (stage
+    # B) call; the owner pass's flags are still torch (no B3)
+    if b2 <= 0 or b2 != sum(hashes.calls.values()):
+        raise AssertionError(f"mesh B2 launches {b2} != hash calls "
+                             f"{hashes.calls}")
     files = same_store(tmp / "native", tmp / "mesh4", "4-shard mesh")
     sort_err = capture.check(sort)
     if set(by_n) != set(sort_err):
@@ -2068,6 +2405,8 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
     cli = run_cli("--mesh 1", tmp / "cloud.ply", tmp / "mesh1")
     same_store(tmp / "native", tmp / "mesh1", "--mesh 1")
     cli_by_n = sorted_lengths(cli, "--mesh 1", sort_checked)
+    if cli["launches"]["quantize_hash"] <= 0:
+        raise AssertionError("the --mesh 1 run launched no B2")
 
     rng = np.random.default_rng(5)
     spill = PointBatch(synth_cloud(SPILL_POINTS, seed=1),
@@ -2126,12 +2465,17 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
         "mesh_s": mesh_s, "mesh_mpts_s": CLOUD_POINTS / mesh_s / 1e6,
         "sort4_launches": launches, "sort4_launches_by_n": by_n,
         "sort4_max_abs_err_by_n": sort_err,
+        "pass_launches": {"quantize_hash": b2, "mark_pack": b3},
+        "hash_calls": hashes.calls,
         **sideband,
         "stages": {k: v for k, v in stages.items() if k.startswith("mesh")
                    or k in ("lsm_merge", "overflow_staging")},
         "mesh1_cli": {"convert_s": cli["convert_s"],
                       "sort4_launches": cli["launches"]["sort4"],
                       "sort4_launches_by_n": cli_by_n,
+                      "pass_launches": {
+                          k: cli["launches"][k]
+                          for k in ("quantize_hash", "mark_pack")},
                       "byte_identical": True},
         "forced_spill": {"points": SPILL_POINTS, "capacity": 1,
                          "sideband_spilled": spilled.sideband_spilled,
@@ -2352,6 +2696,8 @@ def phase_multihost(np, tmp: Path, sort_checked: set) -> dict:
         "multihost_s": multihost_s,
         "worker_s": [r["multihost_s"] for r in runs],
         "sort4_launches_by_rank": [r["launches"]["sort4"] for r in runs],
+        "pass_launches_by_rank": [pass_launches(r, f"multihost rank {i}")
+                                  for i, r in enumerate(runs)],
         "sort4_launches_by_n_by_rank": by_rank,
         "single_device_native_s": single["convert_s"],
         "phase_s": time.perf_counter() - t_phase,
@@ -2727,6 +3073,52 @@ def footprints_alone(torch, np, smi: str) -> int:
     return 0
 
 
+PASS_KERNEL_SOURCES = {
+    "quantize_hash": ("point_cloud_tpu_torch/csrc/quantize_hash.cu",
+                      "point_cloud_tpu/ops/dedup.py:184-260"),
+    "mark_pack": ("point_cloud_tpu_torch/csrc/mark_pack.cu",
+                  "point_cloud_tpu/ops/dedup.py:351-422"),
+}
+
+
+def pass_kernel_entry(name: str, key: str, passed: dict, sliced: dict,
+                      meshed: dict, multihost: dict) -> dict:
+    """The kernels line's entry of B2 or B3: launches on the slice
+    (``--device-native``, phase 4), times and bounds from phase 3 at
+    MAIN_LOG_N and by length, launches by path."""
+    main_n = 1 << MAIN_LOG_N
+    timed = passed["timed"]
+    t = timed[main_n][key]
+    source, replaces = PASS_KERNEL_SOURCES[name]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sliced["pass_launches"][name],
+        "max_abs_err": passed["max_abs_err"][key],
+        "ms": t["ms"], "wrapper_ms": t["wrapper_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "bound_memory": "HBM",
+        # no single PyTorch call quantizes and hashes, or marks, audits
+        # and packs the sorted rows
+        "library_ms": None,
+        "n": main_n,
+        "launches_by_path": {
+            "--device-native": sliced["pass_launches"][name],
+            "--device": sliced["device_pass_launches"][name],
+            "mesh": meshed["pass_launches"][name],
+            "--mesh 1": meshed["mesh1_cli"]["pass_launches"][name],
+            "multihost": [r[name] for r in multihost["pass_launches_by_rank"]],
+        },
+        "checked": len(passed["kernels_checked"]),
+        "ms_by_n": {n: timed[n][key]["ms"] for n in timed},
+        "wrapper_ms_by_n": {n: timed[n][key]["wrapper_ms"] for n in timed},
+        "plain_ms_by_n": {n: timed[n][key]["plain_ms"] for n in timed},
+        "bound_ms_by_n": {n: timed[n][key]["bound_ms"] for n in timed},
+        "unit": "one call on the LiDAR-like cloud's bucket, as the pass "
+                "calls it (B3 two kernels and a 4-byte memset)",
+    }
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2773,11 +3165,11 @@ def main(argv=None) -> int:
     if args.phase == "footprints":
         return footprints_alone(torch, np, smi)
     kernel = phase_kernel(torch, np, sort)
-    phase_pass(torch, np, dedup, get_pipeline)
+    passed = phase_pass(torch, np, dedup, get_pipeline)
     sort_checked = {1 << log_n for log_n in SORT_SIZES}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        sliced = phase_slice(np, sort_checked, tmp)
+        sliced = phase_slice(torch, np, sort_checked, tmp)
         framed = phase_frame(torch, np, tmp / "device-native", tmp)
         served = phase_serve(torch, np, tmp / "device-native", tmp, smi,
                              framed["raster"]["sm_clock_mhz_under_load"])
@@ -2970,7 +3362,8 @@ def main(argv=None) -> int:
             "dense_ms_runs", "dense_wrapper_ms", "dense_plain_ms")},
         "unit": "one launch on the sorted frame's largest bucket; bound_ms "
                 "counts its rows up to the _NO_ID tail",
-    }]})
+    }, *(pass_kernel_entry(name, key, passed, sliced, meshed, multihost)
+         for name, key in (("quantize_hash", "b2"), ("mark_pack", "b3")))]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -124,6 +124,15 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def kernel_launches() -> dict:
+    """The conversion kernels' launch counts in this process (the
+    ``--profile`` JSON's ``launches``)."""
+    from ..ops import mark_pack, quantize_hash, sort
+
+    return {"sort4": sort.launches, "quantize_hash": quantize_hash.launches,
+            "mark_pack": mark_pack.launches}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -197,7 +206,7 @@ def main(argv=None) -> int:
                 "multihost_s": time.perf_counter() - t0,
                 "process_id": config.process_id,
                 "num_processes": config.num_processes,
-                "launches": {"sort4": sort.launches},
+                "launches": kernel_launches(),
                 "launches_by_n": {"sort4": sort.launches_by_n},
             }))
         return 0
@@ -220,7 +229,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "convert_s": seconds,
         "points": metadata.number_of_points,
-        "launches": {"sort4": sort.launches},
+        "launches": kernel_launches(),
         "launches_by_n": {"sort4": sort.launches_by_n},
         "stages": timer.report(),
     }))

@@ -2,7 +2,9 @@
 
 :func:`synth_cloud` is a copy of ``bench.py``'s (the reference's bench
 cloud), for ``chip_smoke.py`` and the tests; a test holds it equal to
-the original.
+the original. :func:`pass_case` and :func:`resident_case` are the
+dedup pass's inputs on the shapes its kernels must meet, shared by
+``tests/test_torch_pass_kernels.py`` and ``chip_smoke.py`` phase 3.
 """
 
 from __future__ import annotations
@@ -31,3 +33,67 @@ def synth_cloud(n: int, seed: int = 0) -> np.ndarray:
         [ground, clusters.astype(np.float32), scatter.astype(np.float32)]
     ).astype(np.float32)
 
+
+
+# the shapes of :func:`pass_case`; every one but "nonfinite" is finite
+PASS_SHAPES = ("synth", "uniform", "all_equal", "lattice", "far",
+               "saturate", "nonfinite")
+_I32_MAX = 2**31 - 1
+
+
+def pass_case(kind: str, n: int, seed: int = 0):
+    """``(positions (n, 3) f32, valid (n,) bool)`` of one pass: real rows,
+    then an eighth of zero padding rows as a bucket has. ``kind``:
+    ``synth`` the LiDAR-like cloud; ``uniform`` points; ``all_equal`` one
+    point in every row and no padding, so all n rows are one run;
+    ``lattice`` a 1/8 grid (exact duplicates: tied distances, near-tie
+    flags); ``far`` |p| ~ 500 with hex-edge x == 0.0 rows (cancellation
+    near-ties); ``saturate`` coordinates past 2^31 cells and slots up to
+    f32's top (the saturating casts); ``nonfinite`` NaN and infinite
+    coordinates."""
+    rng = np.random.default_rng(seed)
+    m = n if kind == "all_equal" else n - n // 8
+    if kind == "synth":
+        pos = synth_cloud(m, seed=seed)
+    elif kind == "uniform":
+        pos = rng.uniform(-300, 300, (m, 3))
+    elif kind == "all_equal":
+        pos = np.tile(np.float32([1.25, -3.5, 7.0]), (m, 1))
+    elif kind == "lattice":
+        pos = rng.integers(-24, 24, (m, 3)) / 8.0
+    elif kind == "far":
+        pos = 500.0 + rng.uniform(-0.05, 0.05, (m, 3))
+        pos[::7, 0] = 0.0
+    elif kind == "saturate":
+        big = np.array([2.2e12, -2.2e12, 1e13, -1e13, 3e38, -3e38, 1e20,
+                        2147483648.0, -2147483904.0, 0.5])
+        pos = rng.uniform(-300, 300, (m, 3))
+        pick = rng.random((m, 3)) < 0.4
+        pos[pick] = rng.choice(big, int(pick.sum()))
+    elif kind == "nonfinite":
+        pos = rng.uniform(-300, 300, (m, 3))
+        pick = rng.random((m, 3)) < 0.2
+        pos[pick] = rng.choice(np.array([np.nan, np.inf, -np.inf]),
+                               int(pick.sum()))
+    else:
+        raise ValueError(f"unknown pass shape {kind!r}")
+    out = np.zeros((n, 3), np.float32)
+    out[:m] = pos
+    valid = np.zeros(n, bool)
+    valid[:m] = True
+    return out, valid
+
+
+def resident_case(n: int, seed: int = 0):
+    """``(resident, src_packed, extras)`` of a resident cascade level as
+    ``dispatch_dedup_resident`` packs it: half the bucket indexes the
+    ``(n, 3)`` resident rows, a third is ``~index`` into the extras, the
+    rest padding (``i32::MAX``)."""
+    rng = np.random.default_rng(seed)
+    resident = synth_cloud(n, seed=seed)
+    extras = rng.uniform(-400, 400, (n // 3, 3)).astype(np.float32)
+    rows = rng.choice(n, n // 2, replace=False).astype(np.int32)
+    src = np.concatenate([rows, ~np.arange(len(extras), dtype=np.int32)])
+    src_packed = np.full(n, _I32_MAX, np.int32)
+    src_packed[: len(src)] = src[rng.permutation(len(src))]
+    return resident, src_packed, extras

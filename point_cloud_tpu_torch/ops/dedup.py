@@ -2,17 +2,31 @@
 
 Counterpart of ``point_cloud_tpu/ops/dedup.py``: same inputs, same
 outputs bit for bit (the packed ``perm | winner<<30 | suspect<<29`` i32
-per row). The pass, as in the reference:
+per row). The reference fuses the pass into one XLA program; on the card
+the port runs it as three hand-written kernels:
 
-1. quantize each point (:func:`hex_keys`, dedup.py:184-225) with the
-   torch twins of ``core/hex.py``,
-2. hash the cell and slot keys (:func:`_hash_cols` / :func:`_mix`,
-   dedup.py:168-181; i32 wraparound and arithmetic shifts),
-3. sort (cell hash, slot hash, distance bits, arrival) with
-   :func:`point_cloud_tpu_torch.ops.sort.sort4` — the Hopper kernel on
-   the card (the reference's ``dispatch_sort4``, dedup.py:116-144),
-4. mark winners, audit hash collisions and float near-ties, and pack one
-   i32 per row (:func:`dedup_pass_light`, dedup.py:351-422).
+1. B2, :func:`~point_cloud_tpu_torch.ops.quantize_hash.quantize_hash`
+   (``csrc/quantize_hash.cu``): quantize each point (``hex_keys``,
+   dedup.py:184-225, with the arithmetic of the torch twins of
+   ``core/hex.py``), hash the cell and slot keys (``_hash_cols`` /
+   ``_mix``, dedup.py:168-181; i32 wraparound and arithmetic shifts) and
+   write the four sort columns with the padding sentinels (``_hash_sort``,
+   dedup.py:228-260); in gather mode it first gathers a cascade level's
+   rows from the device-resident buffer (dedup.py:428-452);
+2. sort (cell hash, slot hash, distance bits, arrival) with
+   :func:`point_cloud_tpu_torch.ops.sort.sort4` (the reference's
+   ``dispatch_sort4``, dedup.py:116-144);
+3. B3, :func:`~point_cloud_tpu_torch.ops.mark_pack.mark_pack`
+   (``csrc/mark_pack.cu``): mark winners, audit hash collisions and float
+   near-ties, spread each run's flags over the run and pack one i32 per
+   row (``_dedup_light_body``, dedup.py:351-422).
+
+The plain versions of B2 and B3 live here, beside the pass they were
+split from: :func:`quantize_hash_reference` (with :func:`hex_keys`,
+:func:`_hash_cols`, :func:`_mix`; :func:`resident_rows_reference` for the
+gather) and :func:`mark_pack_reference` (with :func:`_near_tie_mask` and
+the cumsum/cummax/cummin run fill). On the CPU the wrappers run them;
+on the card a wrapper launches its kernel or raises.
 
 Left out on purpose: the reference's degrade-to-bitonic machinery
 (``_PALLAS_BROKEN``, ``_PALLAS_VETTED``, ``_guarded_call``,
@@ -21,7 +35,8 @@ Left out on purpose: the reference's degrade-to-bitonic machinery
 this path gives way to a plain version or to the CPU.
 
 The distance is written as separate eager ops in the reference order,
-``(dx*dx + dy*dy) + dz*dz``, so no multiply-add fuses into an fma.
+``(dx*dx + dy*dy) + dz*dz``, so no multiply-add fuses into an fma; B2 and
+B3 write every step as an ``_rn`` intrinsic for the same reason.
 
 The NumPy host half is a copy of the reference's (dedup.py:323-348,
 458-495, 674-765): :func:`collect_dedup` waits for the packed rows,
@@ -47,6 +62,8 @@ from ..core.hex import (
 from ..core.metadata import MetadataConfig
 from ..native import hex_keys_native
 from ..utils.tracing import stage
+from .mark_pack import mark_pack
+from .quantize_hash import quantize_hash, quantize_hash_resident
 from .sort import sort4
 
 _I32_MAX = 2**31 - 1
@@ -139,12 +156,13 @@ def _near_tie_mask(same_hash, db_s, pos_s, valid_s):
     return same_hash & near & valid_s
 
 
-def _hash_sort(positions, valid, cell_size, sub_cell_radius):
-    """Keys -> hashes -> 4-column sort (dedup.py:228-260).
-
-    Returns (ch_s, sh_s, db_s, perm, cell_idx, sub_idx, dist). Padding
-    rows carry ch == i32::MAX (real hashes are clamped to 0x7FFFFFFE).
-    """
+def quantize_hash_reference(positions, valid, cell_size, sub_cell_radius,
+                            keys=False):
+    """Plain version of B2 (``hex_keys`` + ``_hash_cols`` + the masking of
+    ``_hash_sort``, dedup.py:184-260): ``(cell_hash, slot_hash, dist_bits,
+    arrival)``, plus ``(cell_idx, sub_idx, dist)`` when ``keys`` is set.
+    Padding rows carry ch == i32::MAX (real hashes are clamped to
+    0x7FFFFFFE), slot hash 0 and distance bits i32::MAX."""
     n = positions.shape[0]
     cell_idx, sub_idx, dist = hex_keys(positions, cell_size, sub_cell_radius)
 
@@ -161,11 +179,36 @@ def _hash_sort(positions, valid, cell_size, sub_cell_radius):
     # arrival (< 2^30) as the unique 4th column: the sort's total order
     # then equals a stable 3-key sort
     arrival = torch.arange(n, dtype=torch.int32, device=positions.device)
-    ch_s, sh_s, db_s, perm = sort4(
-        cell_hash.contiguous(), slot_hash.contiguous(),
-        dist_bits.contiguous(), arrival,
+    out = (cell_hash, slot_hash, dist_bits, arrival)
+    return out + (cell_idx, sub_idx, dist) if keys else out
+
+
+def resident_rows_reference(resident, src_packed, extras):
+    """Plain version of B2's gather mode (dedup.py:428-452): ``(positions,
+    valid)`` of a cascade level. ``src_packed`` >= 0 indexes ``resident``,
+    < 0 is ``~index`` into ``extras``, and i32::MAX marks bucket padding,
+    which reads row 0 (its values never reach the packed result)."""
+    valid = src_packed != _I32_MAX
+    is_res = src_packed >= 0
+    zero = torch.zeros_like(src_packed)
+    res_idx = torch.where(is_res & valid, src_packed, zero).long()
+    ext_idx = torch.where(is_res, zero, torch.bitwise_not(src_packed)).long()
+    positions = torch.where(
+        is_res[:, None], resident[res_idx], extras[ext_idx]
     )
-    return ch_s, sh_s, db_s, perm, cell_idx, sub_idx, dist
+    return positions, valid
+
+
+def _hash_sort(positions, valid, cell_size, sub_cell_radius, keys=False):
+    """Keys -> hashes -> 4-column sort (dedup.py:228-260): B2, then sort4.
+
+    Returns (ch_s, sh_s, db_s, perm, cell_idx, sub_idx, dist), the last
+    three unsorted and only when ``keys`` is set (None otherwise).
+    """
+    out = quantize_hash(positions, valid, cell_size, sub_cell_radius,
+                        keys=keys)
+    ch_s, sh_s, db_s, perm = sort4(*out[:4])
+    return (ch_s, sh_s, db_s, perm) + (out[4:] if keys else (None,) * 3)
 
 
 def _first_of_run(ch_s, sh_s):
@@ -188,7 +231,8 @@ def any_in_run(first, flags):
 
 def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     """One dedup pass over a padded batch, all per-row outputs
-    (dedup.py:263-320).
+    (dedup.py:263-320): B2 with its keys, sort4, then the gathers and the
+    run fill in torch.
 
     Args: (N, 3) f32 positions, (N,) bool valid mask, and the f32 scalars
     cell size, hex slot radius and next hierarchy's cell size.
@@ -198,7 +242,7 @@ def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     arrival).
     """
     ch_s, sh_s, db_s, perm, cell_idx, sub_idx, dist = _hash_sort(
-        positions, valid, cell_size, sub_cell_radius
+        positions, valid, cell_size, sub_cell_radius, keys=True
     )
     next_cell_idx = torch_cell_index(positions, next_cell_size)
 
@@ -227,16 +271,14 @@ def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     )
 
 
-def dedup_pass_light(positions, valid, cell_size, sub_cell_radius):
-    """The pass as one packed i32 per row: ``perm | winner << 30 |
-    suspect << 29`` (``_dedup_light_body``, dedup.py:351-422). The audit
-    recomputes the true keys of the sorted rows from the permuted
-    positions and spreads each run's mismatch flags over the run with
-    cumsum/cummax/cummin fills."""
-    n = positions.shape[0]
-    ch_s, sh_s, db_s, perm, _, _, _ = _hash_sort(
-        positions, valid, cell_size, sub_cell_radius
-    )
+def mark_pack_reference(ch_s, sh_s, db_s, perm, positions, cell_size,
+                        sub_cell_radius):
+    """Plain version of B3 (``_dedup_light_body`` after the sort,
+    dedup.py:351-422): the packed ``perm | winner << 30 | suspect << 29``
+    of the sorted columns. The audit recomputes the true keys of the
+    sorted rows from ``positions[perm]`` and spreads each run's mismatch
+    flags over the run with cumsum/cummax/cummin fills."""
+    n = ch_s.shape[0]
     valid_s = ch_s != _I32_MAX  # real hashes are clamped below i32::MAX
 
     same_hash, first = _first_of_run(ch_s, sh_s)
@@ -275,22 +317,24 @@ def dedup_pass_light(positions, valid, cell_size, sub_cell_radius):
     )
 
 
+def dedup_pass_light(positions, valid, cell_size, sub_cell_radius):
+    """The pass as one packed i32 per row: ``perm | winner << 30 |
+    suspect << 29`` (``_dedup_light_body``, dedup.py:351-422): B2, sort4,
+    B3."""
+    cols = quantize_hash(positions, valid, cell_size, sub_cell_radius)
+    return mark_pack(*sort4(*cols), positions, cell_size, sub_cell_radius)
+
+
 def dedup_pass_resident(resident, src_packed, extras, cell_size,
                         sub_cell_radius):
     """A cascade level whose rows are gathered on the device
     (``_dedup_resident_body``, dedup.py:428-452): ``src_packed`` >= 0
     indexes ``resident`` (the batch's level-0 buffer), < 0 is ``~index``
-    into ``extras``, and i32::MAX marks bucket padding."""
-    valid = src_packed != _I32_MAX
-    is_res = src_packed >= 0
-    zero = torch.zeros_like(src_packed)
-    # padding rows read row 0: their values never reach the packed result
-    res_idx = torch.where(is_res & valid, src_packed, zero).long()
-    ext_idx = torch.where(is_res, zero, torch.bitwise_not(src_packed)).long()
-    positions = torch.where(
-        is_res[:, None], resident[res_idx], extras[ext_idx]
-    )
-    return dedup_pass_light(positions, valid, cell_size, sub_cell_radius)
+    into ``extras``, and i32::MAX marks bucket padding. B2 in gather mode
+    (it also writes the gathered rows), sort4, B3."""
+    *cols, positions = quantize_hash_resident(
+        resident, src_packed, extras, cell_size, sub_cell_radius)
+    return mark_pack(*sort4(*cols), positions, cell_size, sub_cell_radius)
 
 
 def pass_args(positions: np.ndarray, valid: np.ndarray, cell_size,

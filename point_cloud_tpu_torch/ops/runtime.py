@@ -6,11 +6,13 @@ remote TPU's health; neither exists here. What the port needs instead:
 - :func:`resolve_device` — an explicit device. Asking for ``"cuda"``
   without a card raises: the main path never drops to the CPU by itself;
   the CPU is used only when a caller passes ``device="cpu"``.
-- :func:`load_kernels` — builds ``csrc/*.cu`` with nvcc into a shared
-  library with a plain C interface (``sm_90a``), cached in ``_build/`` by
-  a hash of the sources and flags, and loads it with ctypes. One nvcc
-  per source, all started together, then one link. The build runs at
-  first use, never at import.
+- :func:`load_kernels` — builds ``csrc/*.cu`` (which may include
+  ``csrc/*.cuh``) with nvcc into a shared library with a plain C
+  interface (``sm_90a``), cached in ``_build/`` by a hash of the
+  sources, headers and flags, and loads it with ctypes. One nvcc per
+  source, all started together, then one link. The build runs at first
+  use, never at import.
+- :func:`f32_arg` — a kernel's f32 scalar argument on its device.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..core.hex import f32_scalar
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
@@ -52,6 +56,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def f32_arg(value, device) -> torch.Tensor:
+    """A kernel's f32 scalar argument: a number rounded to f32 on
+    ``device``, or a one-element f32 tensor already there (any other
+    tensor raises)."""
+    if isinstance(value, torch.Tensor):
+        if value.device != device or value.dtype != torch.float32 \
+                or value.numel() != 1:
+            raise ValueError(f"a kernel's scalar must be a number or a "
+                             f"one-element f32 tensor on {device}")
+        return value.contiguous()
+    return f32_scalar(value, device)
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
@@ -65,8 +82,9 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(_CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -133,6 +151,10 @@ def load_kernels():
             [ptr] * 12 + [i32] * 4 + [ptr, i64, i64, ptr])
         lib.pc_sorted_merge.restype = ctypes.c_int
         lib.pc_sorted_merge.argtypes = [ptr, i64, ptr, ptr, ptr, i64, ptr]
+        lib.pc_quantize_hash.restype = ctypes.c_int
+        lib.pc_quantize_hash.argtypes = [ptr] * 7 + [i64] + [ptr] * 9
+        lib.pc_mark_pack.restype = ctypes.c_int
+        lib.pc_mark_pack.argtypes = [ptr] * 7 + [i64, ptr, ptr, ptr]
         build_info.update(path=str(lib_path), seconds=seconds)
         _lib = lib
         return _lib

@@ -6,9 +6,11 @@ routed to the shard that *owns* its hex slot by an ``all_to_all``, and
 each owner runs the global winner-of-winners sort over only its slots
 (stage B). Per shard and level the pass sorts four times through
 ``sort4`` (the hand-written kernel on the card): stage A's hash sort, the
-routing sort, and stage B's arrival pre-sort and hash sort. Every sorted
-length is a power of two of at least 1024: the batch pads to 1024·N·2^k
-rows (2^k·1024 a shard), and stage B pads to a pow2 bucket.
+routing sort, and stage B's arrival pre-sort and hash sort; the two hash
+sorts take their columns from B2 (``ops.quantize_hash``, one launch
+each). Every sorted length is a power of two of at least 1024: the batch
+pads to 1024·N·2^k rows (2^k·1024 a shard), and stage B pads to a pow2
+bucket.
 
 Ownership is keyed by the slot hash, not the cell hash: a slot's winner
 must be decided by exactly one shard, and slot-keyed routing stays
@@ -40,6 +42,7 @@ from ..core.hex import (
     torch_cell_index,
 )
 from ..ops import dedup as dedup_mod
+from ..ops.quantize_hash import quantize_hash
 from ..ops.sort import sort4
 from .dedup import shard_rows, shard_slices
 from .mesh import Mesh, all_to_all
@@ -110,18 +113,8 @@ def _check_pack_limits(shard_size: int, n_pad: int) -> None:
 
 def _hashes_for(positions, valid, cell_size, sub_cell_radius):
     """(cell_hash, slot_hash, dist_bits) with padding sentinels applied
-    (owner_cascade.py:138-153)."""
-    cell_idx, sub_idx, dist = dedup_mod.hex_keys(
-        positions, cell_size, sub_cell_radius)
-    cols_cell = tuple(cell_idx[:, i] for i in range(3))
-    cols_all = cols_cell + tuple(sub_idx[:, i] for i in range(3))
-    ch = dedup_mod._hash_cols(cols_cell, dedup_mod._PRIMES_A) & 0x7FFFFFFE
-    sh = dedup_mod._hash_cols(cols_all, dedup_mod._PRIMES_B)
-    max_i32 = torch.full_like(ch, _I32_MAX)
-    ch = torch.where(valid, ch, max_i32)
-    sh = torch.where(valid, sh, torch.zeros_like(sh))
-    dist_bits = torch.where(valid, dist.view(torch.int32), max_i32)
-    return ch, sh, dist_bits
+    (owner_cascade.py:138-153): B2's first three columns."""
+    return quantize_hash(positions, valid, cell_size, sub_cell_radius)[:3]
 
 
 def _owner_stage_a(shard: int, positions, valid, cell_size,
