@@ -24,9 +24,10 @@ use. Imports no JAX. Phases, one JSON line each:
    their plain versions on the card at every length 2^15..2^22 over
    ``PASS_SHAPES``, forced hash collisions and a resident mix; a
    ``torch.profiler`` window over one light and one resident pass whose
-   device work must be B2, ``sort4``'s kernels and B3 only (plus copies
-   and B3's memset: no scan); B2, B3, the light pass and its plain twin
-   timed at 2^18 and 2^20 (device time, CUDA events, bounds);
+   device work must be B2, ``sort4``'s kernels and B3 only (no copy, no
+   memset, no scan), and one over B3 alone: its one kernel, no memset;
+   B2, B3, the light pass and its plain twin timed at 2^18 and 2^20
+   (device time, CUDA events, bounds);
 4. slice: a 2^23-point LiDAR-like cloud (the port's ``synth_cloud``)
    written to PLY and converted by the port's CLI at batch 2^18, in
    subprocesses, three times: ``--device`` (the Python-cell
@@ -81,11 +82,13 @@ use. Imports no JAX. Phases, one JSON line each:
    (``make_mesh(devices=[cuda:0] * 4)``): (a) phase 4's PLY through
    ``MeshConverter`` from zero ``sort4``, B2 and B3 counts, the first
    call at every sorted length held against ``sort4_reference``, one B2
-   launch for every ``_hash_sort`` and ``_hashes_for`` call, the store
-   byte-identical to phase 4's ``--native`` one; ``--mesh 1`` through the
-   CLI, the same; a forced-spill pass (capacity 1, 2^18 points) against
-   the host ``Converter``; the owner-sharded pass timed alone at 2^20
-   rows and one cascade level profiled. (b) The store at 1280x720 from
+   launch for every ``_hash_sort`` and ``_hashes_for`` call and one B3
+   launch for every B2 launch (stage A and stage B mark their sorted
+   rows with B3), the store byte-identical to phase 4's ``--native``
+   one; ``--mesh 1`` through the CLI, the same; a forced-spill pass
+   (capacity 1, 2^18 points) against the host ``Converter``; the
+   owner-sharded pass timed alone at 2^20 rows with its device time by
+   kernel, and one cascade level profiled. (b) The store at 1280x720 from
    phase 7's pose through ``MeshPointRenderer`` from zero K1 and K2
    counts (one launch of each a shard and bucket): bit-equal to the
    single-device plain raster arm, to the same mesh on the CPU and to
@@ -424,7 +427,7 @@ B2_GATHER_BYTES_PER_ROW = 44
 B2_OPS_PER_ROW = 125
 B3_OPS_PER_ROW = 100
 PASS_KERNELS = {"b2": {"quantize_hash_kernel": 1},
-                "b3": {"mark_pack_tiles": 1, "mark_pack_resolve": 1}}
+                "b3": {"mark_pack_kernel": 1}}
 
 
 def bits_err(torch, got, ref) -> int:
@@ -521,30 +524,56 @@ def check_pass_kernels(torch, np, dedup, qh, mp, sort) -> dict:
     return {"checked": checked, "max_abs_err": worst}
 
 
-def pass_kernel_names(torch, fns) -> dict:
-    """{device event name: count} of one call of each of ``fns`` under
-    torch.profiler, after a warm-up call of each."""
-    from torch.profiler import ProfilerActivity, profile
+def pass_kernel_names(torch, fns, per_round: dict, reps: int = 10) -> dict:
+    """{device event name: count} that the profiler kept of ``reps``
+    rounds of ``fns`` (each called once a round). As in
+    ``device_kernel_ms``, the rounds run in the recorded step of a profile
+    whose warm-up step has traced the same calls for PROFILE_LEAD_S,
+    because the profiler drops kernels at the start of a profile (the one
+    kernel of a single recorded call can be lost). ``per_round`` maps a
+    name that a kernel's name holds to how many such kernels a round
+    launches: a profile that kept more raises, one that kept fewer than
+    half is taken again, up to PROFILE_TRIES profiles."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def one_round():
         for fn in fns:
             fn()
-        torch.cuda.synchronize()
-    names = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            names[e.name] = names.get(e.name, 0) + 1
-    return names
+
+    one_round()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            lead_end = time.perf_counter() + PROFILE_LEAD_S
+            while time.perf_counter() < lead_end:
+                one_round()
+                torch.cuda.synchronize()
+            prof.step()  # the warm-up step ends: only what follows counts
+            for _ in range(reps):
+                one_round()
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.events():  # the step markers are not device work
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and not e.name.startswith("ProfilerStep"):
+                names[e.name] = names.get(e.name, 0) + 1
+        kept = {k: sum(v for name, v in names.items() if k in name)
+                for k in per_round}
+        if any(kept[k] > reps * c for k, c in per_round.items()):
+            raise AssertionError(f"{reps} rounds ran more kernels than "
+                                 f"{per_round} a round: {names}")
+        if all(2 * kept[k] >= reps * c for k, c in per_round.items()):
+            return names
+    raise AssertionError(f"the profiler kept too few kernels of {per_round} "
+                         f"in {PROFILE_TRIES} profiles: {names}")
 
 
-def check_pass_profile(torch, np, dedup, n: int) -> dict:
-    """One light pass and one resident pass on the card: their device
-    work must be B2, sort4's kernels and B3 (plus copies and B3's 4-byte
-    ticket memset), each of those at least once, and no scan."""
+def check_pass_profile(torch, np, dedup, mp, sort, n: int) -> dict:
+    """Rounds of one light pass and one resident pass on the card: their
+    device work must be B2, sort4's kernels and at most one B3 kernel a
+    pass, nothing else (no copy, no memset, no scan); then B3 alone: its
+    one kernel and nothing else."""
     from point_cloud_tpu_torch.core.metadata import MetadataConfig
     from point_cloud_tpu_torch.models.synth import pass_case, resident_case
 
@@ -555,22 +584,29 @@ def check_pass_profile(torch, np, dedup, n: int) -> dict:
                            "cuda")
     res = [torch.from_numpy(a).cuda()
            for a in resident_case(n, seed=6)]
+    ours = ("quantize_hash_kernel", "sort4_tile", "sort4_merge",
+            "mark_pack_kernel")
+    per_pass = {"quantize_hash_kernel": 1, **sort4_kernels(n),
+                "mark_pack_kernel": 1}
     names = pass_kernel_names(torch, [
         lambda: dedup.dedup_pass_light(*args),
-        lambda: dedup.dedup_pass_resident(*res, *args[2:])])
-    ours = ("quantize_hash_kernel", "sort4_tile", "sort4_merge",
-            "mark_pack_tiles", "mark_pack_resolve")
+        lambda: dedup.dedup_pass_resident(*res, *args[2:])],
+        {k: 2 * c for k, c in per_pass.items() if c})
     other = {k: v for k, v in names.items()
-             if not any(o in k for o in ours)
-             and not k.startswith(("Memcpy", "Memset"))}
+             if not any(o in k for o in ours)}
     if other:
         raise AssertionError(f"the pass ran other device work: {other}")
     missing = [o for o in ours if not any(o in k for k in names)]
     if missing:
         raise AssertionError(f"the profile shows no {missing}: {names}")
-    if any("cum" in k.lower() or "scan" in k.lower() for k in names):
-        raise AssertionError(f"a scan kernel ran in the pass: {names}")
-    return names
+    cols = sort.sort4(*dedup.quantize_hash_reference(*args))
+    alone = pass_kernel_names(torch, [
+        lambda: mp.mark_pack(*cols, args[0], *args[2:])],
+        {"mark_pack_kernel": 1})
+    if len(alone) != 1 or "mark_pack_kernel" not in next(iter(alone)):
+        raise AssertionError(f"B3 is not one kernel and nothing else: "
+                             f"{alone}")
+    return {"passes": names, "b3_alone": alone}
 
 
 def time_pass(torch, np, dedup, qh, mp, sort, n: int) -> dict:
@@ -677,7 +713,7 @@ def phase_pass(torch, np, dedup, get_pipeline) -> dict:
         raise AssertionError("dedup_pass_resident: cuda != cpu")
 
     kernels = check_pass_kernels(torch, np, dedup, qh, mp, sort)
-    names = check_pass_profile(torch, np, dedup, 1 << 18)
+    names = check_pass_profile(torch, np, dedup, mp, sort, 1 << 18)
     timed = {1 << log_n: time_pass(torch, np, dedup, qh, mp, sort, 1 << log_n)
              for log_n in PASS_TIMED_LOG_N}
     result = {
@@ -1277,9 +1313,10 @@ def check_edge_bucket(torch, splat, inp: dict, name: str) -> dict:
             "raster_err": err}
 
 
-def busy_share(torch, fn) -> dict:
+def busy_share(torch, fn, top: int | None = 8) -> dict:
     """Run ``fn`` once under torch.profiler: the device time of its
-    kernels and copies over the host wall time of the call."""
+    kernels and copies over the host wall time of the call, and the
+    ``top`` largest device times by name (every name when None)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1302,7 +1339,7 @@ def busy_share(torch, fn) -> dict:
         elif hi > reach:
             device_us += hi - reach
             reach = hi
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
             "busy_share": device_us / 1e3 / wall_ms if device_us else None,
             "top_device_ms": dict(top)}
@@ -2388,10 +2425,12 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
     if launches <= 0:
         raise AssertionError("the mesh conversion launched no sort4")
     # one B2 launch for every _hash_sort (stage A) and _hashes_for (stage
-    # B) call; the owner pass's flags are still torch (no B3)
+    # B) call, and one B3 launch for each (its sorted rows' flags)
     if b2 <= 0 or b2 != sum(hashes.calls.values()):
         raise AssertionError(f"mesh B2 launches {b2} != hash calls "
                              f"{hashes.calls}")
+    if b3 != b2:
+        raise AssertionError(f"mesh B3 launches {b3} != B2 launches {b2}")
     files = same_store(tmp / "native", tmp / "mesh4", "4-shard mesh")
     sort_err = capture.check(sort)
     if set(by_n) != set(sort_err):
@@ -2405,8 +2444,10 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
     cli = run_cli("--mesh 1", tmp / "cloud.ply", tmp / "mesh1")
     same_store(tmp / "native", tmp / "mesh1", "--mesh 1")
     cli_by_n = sorted_lengths(cli, "--mesh 1", sort_checked)
-    if cli["launches"]["quantize_hash"] <= 0:
-        raise AssertionError("the --mesh 1 run launched no B2")
+    if cli["launches"]["quantize_hash"] <= 0 or \
+            cli["launches"]["mark_pack"] != cli["launches"]["quantize_hash"]:
+        raise AssertionError(f"the --mesh 1 run's B2/B3 launches: "
+                             f"{cli['launches']}")
 
     rng = np.random.default_rng(5)
     spill = PointBatch(synth_cloud(SPILL_POINTS, seed=1),
@@ -2445,7 +2486,7 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
 
     pass_ms = cuda_ms(device_pass)
     host_pass_ms = cuda_ms(lambda: owner(pos, cell_size, sub_size), reps=5)
-    pass_busy = busy_share(torch, device_pass)
+    pass_busy = busy_share(torch, device_pass, top=None)
     # one cascade level (a fresh store's level 0 at batch 2^18) twice:
     # under torch.profiler, and under cProfile for the host's functions
     batch = PointBatch(synth_cloud(BATCH, seed=3),
@@ -3115,7 +3156,7 @@ def pass_kernel_entry(name: str, key: str, passed: dict, sliced: dict,
         "plain_ms_by_n": {n: timed[n][key]["plain_ms"] for n in timed},
         "bound_ms_by_n": {n: timed[n][key]["bound_ms"] for n in timed},
         "unit": "one call on the LiDAR-like cloud's bucket, as the pass "
-                "calls it (B3 two kernels and a 4-byte memset)",
+                "calls it (one launch each, no memset)",
     }
 
 

@@ -2,9 +2,9 @@
 //
 // Replaces the back half of the reference's fused light pass,
 // point_cloud_tpu/ops/dedup.py _dedup_light_body (:351-422) with
-// _near_tie_mask (:51-81), which _dedup_resident_body (:428-452) shares.
-// The port ran it as some forty eager torch launches, among them torch's
-// CUDA cumsum, cummax and a flipped cummin.
+// _near_tie_mask (:51-81), which _dedup_resident_body (:428-452) shares,
+// and the same flags of the owner cascade's _winner_and_suspect
+// (point_cloud_tpu/parallel/owner_cascade.py:70-111).
 //
 // Input: the four columns sort4 left (cell hash, slot hash, distance bits,
 // perm) and the positions perm indexes. Output, per sorted row,
@@ -21,57 +21,91 @@
 // Row 0 has no predecessor: it is first and carries no mismatch, which is
 // what the reference's roll-then-clear gives it.
 //
-// The hard part is the run spread: a run has any length (every row of a
-// bucket can be one run) and crosses any tile. Two launches, linear work:
-// - mark_pack_tiles: a block takes 512 rows, one a thread. It computes the
-//   flags, gathers them into warp ballots in shared memory, and for each
-//   row ORs the mismatch bits of its run inside the tile with a handful of
-//   bit operations (or_back / or_ahead: the nearest run start at or before
-//   the row, the nearest run end at or after it, found with clz and ffs
-//   over the ballot words and a mask of the nonzero words). It writes the
-//   packed row with that tile-local suspect bit, and a summary of the tile:
-//   whether a run starts in it, where the first and last starts are, the
-//   mismatch OR of its head (rows before the first start) and of its tail
-//   (rows from the last start). The last block to finish (an atomic ticket
-//   after a fence) runs the segmented OR over the tile summaries, forward
-//   (carry in: the OR of the run that enters the tile) and backward (carry
-//   out: the OR of the run that leaves it), with the same bit operations
-//   across its threads' chunks of tiles.
-// - mark_pack_resolve: a block reads its tile's carries; where one is set
-//   it adds the suspect bit to the head or tail rows it covers. Most tiles
-//   have none and leave at once.
-// No cumsum, cummax, cummin or scatter: every row is written twice at most,
-// the tile scan touches 4 B a tile, and nothing is quadratic in a run.
-// The ticket is zeroed by a 4-byte memset before the first launch.
+// One launch a call, no memset. A block takes a tile of 1,024 rows, two or
+// four a thread (kFewRows): each column arrives as one 8- or 16-byte load a
+// thread, the neighbours at i-1 and i+1 come from warp shuffles (across warps through shared
+// memory, across tiles from one halo row at each edge), and every
+// positions[perm] gather of a thread is issued before any key arithmetic.
+// The run spread is a single-pass chained scan over the tiles, a
+// decoupled look-back (Merrill and Garland, 2016):
+// - inside the tile, run starts, run ends and mismatches become 32 ballot
+//   words; each row ORs the mismatches of its run's part in the tile with
+//   clz/ffs over those words (or_back / or_ahead) and is stored with that
+//   tile-local suspect bit, then fenced;
+// - the tile then publishes a status word: with a run start, the index of
+//   its last start and the mismatch OR from there to its end (an inclusive
+//   prefix); without one, its own OR (an aggregate), and, once its
+//   look-back resolves, the prefix;
+// - a tile whose first row continues a run looks back over its
+//   predecessors' words, a warp reading 32 at once, to the nearest prefix:
+//   that gives the run's start row and the OR of its rows before the tile.
+//   If the run ends in this tile (a start follows, or the tile is the
+//   array's last), the tile knows the run's whole OR and, if it is set,
+//   sets bit 29 with atomicOr on the run's rows in the earlier tiles (they
+//   were stored and fenced before their tiles published) and, if the part
+//   before it was set, on its own head rows.
+// Every row is written at most twice, and no block waits on a later one.
+// Tile numbers come from a tile counter in the order blocks start, so the
+// tiles a block waits on belong to blocks already running. The counter
+// and the status words live in a scratch that the wrapper keeps per
+// (device, stream) and zeroes once: a call passes the counter's value at
+// its start (``base``: each call adds ``tiles``) and a call tag
+// (``epoch``, never 0) that its status words carry, so no word needs
+// clearing between calls.
 //
 // Arithmetic: the keys and the near-tie threshold are IEEE f32 with _rn
 // intrinsics in the torch twins' order (no fma); max|p| propagates NaN as
 // torch.amax does, and max(d, 0) keeps a NaN d as torch.clamp_min does.
 //
-// What bounds it: bytes, 32 a row (16 B of sorted columns, 12 B of
-// positions gathered through perm, 4 B written): 10 us at 2^20 rows at
-// 3.35 TB/s. The gathers are scattered 12-byte reads, which move whole
-// 32-byte sectors; the keys cost ~80 operations a row where a row shares
-// its hash pair with a neighbour.
+// What bounds it: bytes, 16 B a row of sorted columns read and 4 B written,
+// plus 12 B of position gathered through perm for each row that shares its
+// hash pair with a neighbour (~80 f32 operations there): 8.3 us at 2^20
+// rows of the LiDAR-like cloud at 3.35 TB/s. The gathers are scattered
+// 12-byte reads through the read-only path, which move whole 32-byte
+// sectors, mostly from L2 (B2 streamed the positions just before sort4).
+// On the H100 a tile's chain of dependent round trips (its columns, the
+// gathers through perm, the key arithmetic, its stores and status) holds
+// it near 10 us a wave of tiles, whatever the run spread costs: one wave
+// at 2^18 rows, three at 2^20. Loading each position as one or two 16-byte
+// chunks was slower than three 4-byte loads; a block-index tile order or
+// one fence a block in place of the tile counter and a fence a thread
+// changed nothing measurable.
 
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 #include "hex_keys.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;  // rows a tile, one a thread
-constexpr int kWords = kThreads / 32;
+constexpr int kTileRows = 1024;
+constexpr int kWords = kTileRows / 32;  // ballot words a tile
+static_assert(kWords == 32, "or_back / or_ahead take 32 words of 32 rows");
+// Rows a thread (kRows, 2 or 4; a block has kTileRows / kRows threads):
+// at up to kFewRows rows the tiles fit in one wave of 512-thread blocks,
+// and two rows a thread shorten a tile's serial chain; above it four rows
+// a thread keep twice the rows resident. On the H100 (tools/kernel_ab.py
+// pass, the LiDAR-like cloud): 10.2 against 12.4 us at 2^18 rows, 34.7
+// against 32.2 at 2^20 and 152 against 125 at 2^22.
+constexpr long long kFewRows = 1LL << 18;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kNearTieUlps = 8;
 constexpr float kNearTieScale = 3.814697265625e-06f;  // 64 * 2^-24 = 2^-18
+constexpr int kSuspect = 1 << 29;
 
-// summary word of a tile: has_start | head_or << 1 | tail_or << 2 |
-// first_start << 3 | last_start << 13 (starts are row offsets in the tile,
-// kThreads when there is none)
-constexpr int kFirstShift = 3;
-constexpr int kLastShift = 13;
-constexpr int kStartMask = 1023;
+// A tile's status word: epoch << 32 | payload. The payload holds kPrefix
+// (an inclusive prefix; else the aggregate of a tile without a run start),
+// kOrBit (the mismatch OR) and, in a prefix, the start row of the run that
+// leaves the tile.
+constexpr unsigned kPrefix = 1u << 31;
+constexpr unsigned kOrBit = 1u << 29;
+constexpr unsigned kIndexMask = (1u << 29) - 1;
+// Polls of a predecessor's word before the kernel gives up (~20 s): the
+// tile it waits on belongs to a block already running, so only a scratch
+// that another call shares can keep it waiting.
+constexpr unsigned kSpinLimit = 1u << 27;
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   if (a != a) return a;
@@ -87,9 +121,9 @@ __device__ __forceinline__ unsigned bits_lt(int b) {  // bits 0..b-1, b <= 31
   return (1u << b) - 1u;
 }
 
-// A sequence of at most 32 x 32 positions: bit b of word w is position
-// 32 w + b. ``f`` marks segment bounds, ``m`` the values; ``nz_f`` and
-// ``nz_m`` have bit w set where word w of f or m is nonzero.
+// A sequence of 32 x 32 positions: bit b of word w is position 32 w + b.
+// ``f`` marks segment bounds, ``m`` the values; ``nz_f`` and ``nz_m`` have
+// bit w set where word w of f or m is nonzero.
 struct Bits {
   const unsigned* f;
   const unsigned* m;
@@ -97,19 +131,15 @@ struct Bits {
 };
 
 // OR of m over [s, p], s the last position <= p where f is set, or 0 when
-// there is none; *found says whether there was one.
-__device__ __forceinline__ bool or_back(const Bits& x, int p, bool* found) {
+// there is none.
+__device__ __forceinline__ bool or_back(const Bits& x, int p) {
   const int w = p >> 5;
   const unsigned le = bits_le(p & 31);
   const unsigned fw = x.f[w] & le;
-  if (fw) {
-    *found = true;
-    return (x.m[w] & le & ~bits_lt(31 - __clz(fw))) != 0;
-  }
-  bool v = (x.m[w] & le) != 0;
+  if (fw) return (x.m[w] & le & ~bits_lt(31 - __clz(fw))) != 0;
+  const bool v = (x.m[w] & le) != 0;
   const unsigned below = bits_lt(w);  // the words before w
   const unsigned starts = x.nz_f & below;
-  *found = starts != 0;
   if (starts) {
     const int ws = 31 - __clz(starts);
     const int s = 31 - __clz(x.f[ws]);
@@ -120,19 +150,15 @@ __device__ __forceinline__ bool or_back(const Bits& x, int p, bool* found) {
 }
 
 // OR of m over [p, e], e the first position >= p where f is set, or the
-// last position when there is none; *found says whether there was one.
-__device__ __forceinline__ bool or_ahead(const Bits& x, int p, bool* found) {
+// last position when there is none.
+__device__ __forceinline__ bool or_ahead(const Bits& x, int p) {
   const int w = p >> 5;
   const unsigned ge = ~bits_lt(p & 31);
   const unsigned fw = x.f[w] & ge;
-  if (fw) {
-    *found = true;
-    return (x.m[w] & ge & bits_le(__ffs(fw) - 1)) != 0;
-  }
-  bool v = (x.m[w] & ge) != 0;
+  if (fw) return (x.m[w] & ge & bits_le(__ffs(fw) - 1)) != 0;
+  const bool v = (x.m[w] & ge) != 0;
   const unsigned above = ~bits_le(w);  // the words after w
   const unsigned ends = x.nz_f & above;
-  *found = ends != 0;
   if (ends) {
     const int we = __ffs(ends) - 1;
     const int e = __ffs(x.f[we]) - 1;
@@ -142,226 +168,431 @@ __device__ __forceinline__ bool or_ahead(const Bits& x, int p, bool* found) {
   return v || (x.nz_m & above) != 0;
 }
 
-// Every thread of the block calls it: the block's ballots of f and m into
-// sf/sm (one word a warp) and their nonzero-word masks into nz[0..1].
-__device__ __forceinline__ void ballot_bits(bool f, bool m, unsigned* sf,
-                                            unsigned* sm, unsigned* nz) {
-  const unsigned bf = __ballot_sync(kFull, f);
-  const unsigned bm = __ballot_sync(kFull, m);
-  if ((threadIdx.x & 31) == 0) {
-    sf[threadIdx.x >> 5] = bf;
-    sm[threadIdx.x >> 5] = bm;
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int l = threadIdx.x;
-    const unsigned nf = __ballot_sync(kFull, l < kWords && sf[l] != 0);
-    const unsigned nm = __ballot_sync(kFull, l < kWords && sm[l] != 0);
-    if (l == 0) {
-      nz[0] = nf;
-      nz[1] = nm;
-    }
-  }
-  __syncthreads();
-}
-
-// The true keys of row ``r`` (cell index and slot) into column ``slot`` of
-// the shared key table.
-__device__ __forceinline__ void row_keys(const float* positions, const int* perm,
-                                         long long r, float cs, float rad,
-                                         int (*key)[kThreads + 1], int slot,
-                                         float* p) {
-  const float* q = positions + 3LL * __ldg(perm + r);
-  p[0] = __ldg(q);
-  p[1] = __ldg(q + 1);
-  p[2] = __ldg(q + 2);
+// The true keys of a position: cell index, then hex slot.
+__device__ __forceinline__ void row_keys(const float* p, float cs, float rad,
+                                         int* key) {
   const pc_hex::Keys k = pc_hex::hex_keys<false>(p[0], p[1], p[2], cs, rad);
   for (int c = 0; c < 3; ++c) {
-    key[c][slot] = k.cell[c];
-    key[3 + c][slot] = k.sub[c];
+    key[c] = k.cell[c];
+    key[3 + c] = k.sub[c];
   }
 }
 
-// The last block's segmented ORs over the tile summaries: carry bit 0 =
-// the mismatch OR of the run entering tile j from the tiles before it,
-// bit 1 = that of the run leaving it into the tiles after it.
-__device__ void scan_tiles(const int* summary, int* carry, int tiles,
-                           unsigned* sf, unsigned* sm, unsigned* nz) {
-  const int tid = threadIdx.x;
-  const int per = (tiles + kThreads - 1) / kThreads;
-  const int j0 = min(tid * per, tiles), j1 = min(j0 + per, tiles);
-  bool found;
-
-  // forward: the tail ORs since the last tile where a run starts
-  bool r = false, v = false;
-  for (int j = j0; j < j1; ++j) {
-    const int s = __ldcg(summary + j);
-    const bool tail = (s >> 2) & 1;
-    r = r || (s & 1);
-    v = (s & 1) ? tail : (v || tail);
-  }
-  ballot_bits(r, v, sf, sm, nz);
-  bool in = tid > 0 && or_back(Bits{sf, sm, nz[0], nz[1]}, tid - 1, &found);
-  for (int j = j0; j < j1; ++j) {
-    const int s = __ldcg(summary + j);
-    carry[j] = in;
-    const bool tail = (s >> 2) & 1;
-    in = (s & 1) ? tail : (in || tail);
-  }
-  __syncthreads();  // the shared words are reused
-
-  // backward: the head ORs up to the next tile where a run starts
-  r = false;
-  v = false;
-  for (int j = j1 - 1; j >= j0; --j) {
-    const int s = __ldcg(summary + j);
-    const bool head = (s >> 1) & 1;
-    r = r || (s & 1);
-    v = (s & 1) ? head : (v || head);
-  }
-  ballot_bits(r, v, sf, sm, nz);
-  bool out = tid + 1 < kThreads &&
-             or_ahead(Bits{sf, sm, nz[0], nz[1]}, tid + 1, &found);
-  for (int j = j1 - 1; j >= j0; --j) {
-    const int s = __ldcg(summary + j);
-    carry[j] |= static_cast<int>(out) << 1;
-    const bool head = (s >> 1) & 1;
-    out = (s & 1) ? head : (out || head);
+// ``in`` rows of a column from row i (vector loads when all kRows are in
+// range and the column is 16-byte aligned), 0 past them.
+template <int kRows, bool kVec>
+__device__ __forceinline__ void load_rows(const int* __restrict__ col,
+                                          long long i, int in, int* v) {
+  constexpr int kVecInts = kRows < 4 ? kRows : 4;  // ints a vector load
+  if (kVec && in == kRows) {
+    for (int k = 0; k < kRows; k += kVecInts) {
+      if constexpr (kVecInts == 4) {
+        const int4 q = __ldg(reinterpret_cast<const int4*>(col + i + k));
+        v[k] = q.x;
+        v[k + 1] = q.y;
+        v[k + 2] = q.z;
+        v[k + 3] = q.w;
+      } else {
+        const int2 q = __ldg(reinterpret_cast<const int2*>(col + i + k));
+        v[k] = q.x;
+        v[k + 1] = q.y;
+      }
+    }
+  } else {
+    for (int k = 0; k < kRows; ++k) v[k] = k < in ? __ldg(col + i + k) : 0;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) mark_pack_tiles(
+template <int kRows, bool kVec>
+__device__ __forceinline__ void store_rows(int* out, long long i, int in,
+                                           const int* v) {
+  constexpr int kVecInts = kRows < 4 ? kRows : 4;
+  if (kVec && in == kRows) {
+    for (int k = 0; k < kRows; k += kVecInts) {
+      if constexpr (kVecInts == 4) {
+        *reinterpret_cast<int4*>(out + i + k) =
+            make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+      } else {
+        *reinterpret_cast<int2*>(out + i + k) = make_int2(v[k], v[k + 1]);
+      }
+    }
+  } else {
+    for (int k = 0; k < kRows; ++k)
+      if (k < in) out[i + k] = v[k];
+  }
+}
+
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned epoch, unsigned payload) {
+  const unsigned long long v =
+      (static_cast<unsigned long long>(epoch) << 32) | payload;
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long observe(
+    const unsigned long long* word) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(word)
+               : "memory");
+  return v;
+}
+
+// Warp 0 of ``tile``: the start row of the run that enters the tile and
+// whether its rows before the tile hold a mismatch, from the status words
+// of the tiles before it, 32 at a time, back to the nearest prefix. Tile 0
+// always publishes a prefix (its row 0 starts a run), so the walk ends.
+__device__ __forceinline__ void look_back(const unsigned long long* status,
+                                          int tile, unsigned epoch,
+                                          unsigned* start, bool* any) {
+  const int lane = threadIdx.x & 31;
+  bool acc = false;
+  for (int j = tile - 1 - lane;; j -= 32) {
+    unsigned pay = kPrefix;  // before tile 0 (never the nearest prefix)
+    if (j >= 0) {
+      unsigned long long v;
+      for (unsigned tries = 0;; ++tries) {
+        v = observe(status + j);
+        if (static_cast<unsigned>(v >> 32) == epoch) break;
+        if (tries >= kSpinLimit) __trap();  // a broken scratch: fail, not hang
+        if (tries >= 8) __nanosleep(128);
+      }
+      pay = static_cast<unsigned>(v);
+    }
+    const unsigned prefixes = __ballot_sync(kFull, (pay & kPrefix) != 0);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    const bool hit = __any_sync(kFull, lane <= stop && (pay & kOrBit));
+    acc = acc || hit;
+    if (prefixes) {
+      *start = __shfl_sync(kFull, pay & kIndexMask, stop);
+      *any = acc;
+      return;
+    }
+  }
+}
+
+// kRows blocks an SM at least: at most 64 registers a thread
+template <int kRows, bool kVec>
+__global__ void __launch_bounds__(kTileRows / kRows, kRows) mark_pack_kernel(
     const int* __restrict__ ch, const int* __restrict__ sh,
     const int* __restrict__ db, const int* __restrict__ perm,
     const float* __restrict__ positions, const float* __restrict__ cell_size,
-    const float* __restrict__ radius, long long n, int tiles,
-    int* __restrict__ out, int* summary, int* carry, unsigned* ticket) {
-  __shared__ int key[6][kThreads + 1];  // column 0: the row before the tile
-  __shared__ unsigned s_f[kWords], s_m[kWords], s_l[kWords], s_nz[3];
-  __shared__ int s_head, s_tail, s_last_block;
-  const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * kThreads;
-  const long long i = base + tid;
-  const int rows = static_cast<int>(min(static_cast<long long>(kThreads), n - base));
-  const bool in = tid < rows;
+    const float* __restrict__ radius, long long n, int* out,
+    unsigned long long* status, unsigned* counter, unsigned base,
+    unsigned epoch) {
+  static_assert(kRows == 2 || kRows == 4, "rows a thread");
+  constexpr int kThreads = kTileRows / kRows;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kLanesPerWord = 32 / kRows;  // lanes that fill a word
+  __shared__ int s_last[kWarps][3];   // each warp's last row: ch, sh, db
+  __shared__ int s_first[kWarps][2];  // each warp's first row: ch, sh
+  __shared__ int s_keys[kWarps][6];   // the true keys of each warp's last row
+  __shared__ unsigned s_f[kWords], s_m[kWords], s_l[kWords];
+  __shared__ int s_tile;
+  __shared__ long long s_fix[3];  // earlier rows [0], [1]; own rows below [2]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_tile = static_cast<int>(atomicAdd(counter, 1u) - base);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long begin = static_cast<long long>(tile) * kTileRows;
+  const int rows = static_cast<int>(min(static_cast<long long>(kTileRows),
+                                        n - begin));
+  const int r0 = tid * kRows;  // the tile row of this thread's first row
+  const long long i0 = begin + r0;
+  const int in = max(0, min(kRows, rows - r0));  // of its rows in the array
+
+  int c[kRows], s[kRows], d[kRows], pm[kRows];
+  load_rows<kRows, kVec>(ch, i0, in, c);
+  load_rows<kRows, kVec>(sh, i0, in, s);
+  load_rows<kRows, kVec>(db, i0, in, d);
+  load_rows<kRows, kVec>(perm, i0, in, pm);
+  // the halo rows: before the tile (thread 0) and after it (the last one)
+  int pc = 0, ps = 0, pd = 0, hp = 0, nc = 0, ns = 0;
+  if (tid == 0 && begin > 0) {
+    pc = __ldg(ch + begin - 1);
+    ps = __ldg(sh + begin - 1);
+    pd = __ldg(db + begin - 1);
+    hp = __ldg(perm + begin - 1);
+  }
+  if (tid == kThreads - 1 && begin + kTileRows < n) {
+    nc = __ldg(ch + begin + kTileRows);
+    ns = __ldg(sh + begin + kTileRows);
+  }
   const float cs = __ldg(cell_size), rad = __ldg(radius);
 
-  int c = 0;
-  bool valid = false, same_prev = false, same_next = false;
-  if (in) {
-    c = __ldg(ch + i);
-    const int s = __ldg(sh + i);
-    valid = c != INT_MAX;
-    same_prev = i > 0 && __ldg(ch + i - 1) == c && __ldg(sh + i - 1) == s;
-    same_next = i + 1 < n && __ldg(ch + i + 1) == c && __ldg(sh + i + 1) == s;
+  // the rows at i0 - 1 and i0 + kRows
+  if (lane == 31) {
+    s_last[warp][0] = c[kRows - 1];
+    s_last[warp][1] = s[kRows - 1];
+    s_last[warp][2] = d[kRows - 1];
   }
-  const bool first = in && !same_prev;
-  const bool audit = in && valid && same_prev;  // mismatch can be set
-
-  // true keys: only rows that share their hash pair with a neighbour
-  float p[3] = {0.0f, 0.0f, 0.0f}, q[3];
-  if (in && valid && (same_prev || same_next))
-    row_keys(positions, perm, i, cs, rad, key, tid + 1, p);
-  if (tid == 0 && audit) row_keys(positions, perm, i - 1, cs, rad, key, 0, q);
-  __syncthreads();
-
-  bool mis = false;
-  if (audit) {
-    bool diff = false;
-    for (int k = 0; k < 6; ++k) diff = diff || key[k][tid + 1] != key[k][tid];
-    const int d = __ldg(db + i), dp = __ldg(db + i - 1);
-    const int gap = static_cast<int>(static_cast<unsigned>(d) - static_cast<unsigned>(dp));
-    const float df = __int_as_float(d), dpf = __int_as_float(dp);
-    const float pmax = max_nan(max_nan(fabsf(p[0]), fabsf(p[1])), fabsf(p[2]));
-    const float dc = df != df ? df : fmaxf(df, 0.0f);
-    const float thr = pc_hex::mul(pc_hex::mul(kNearTieScale, pmax), __fsqrt_rn(dc));
-    mis = diff || gap <= kNearTieUlps || pc_hex::sub(df, dpf) <= thr;
+  if (lane == 0) {
+    s_first[warp][0] = c[0];
+    s_first[warp][1] = s[0];
   }
-
-  // run starts and mismatches as ballot words; run ends (the next row
-  // starts a run) shifted from the starts, unknown past the tile's end
-  ballot_bits(first, mis, s_f, s_m, s_nz);
-  if (tid < 32) {
-    const unsigned f = tid < kWords ? s_f[tid] : 0u;
-    const unsigned fn = tid + 1 < kWords ? s_f[tid + 1] : 0u;
-    const unsigned l = (f >> 1) | ((fn & 1u) << 31);
-    if (tid < kWords) s_l[tid] = l;
-    const unsigned nl = __ballot_sync(kFull, l != 0);
-    if (tid == 0) s_nz[2] = nl;
+  {
+    const int uc = __shfl_up_sync(kFull, c[kRows - 1], 1);
+    const int us = __shfl_up_sync(kFull, s[kRows - 1], 1);
+    const int ud = __shfl_up_sync(kFull, d[kRows - 1], 1);
+    const int dc = __shfl_down_sync(kFull, c[0], 1);
+    const int ds = __shfl_down_sync(kFull, s[0], 1);
+    if (lane > 0) {
+      pc = uc;
+      ps = us;
+      pd = ud;
+    }
+    if (lane < 31) {
+      nc = dc;
+      ns = ds;
+    }
   }
   __syncthreads();
-
-  bool closed;
-  const bool back = or_back(Bits{s_f, s_m, s_nz[0], s_nz[1]}, tid, &closed);
-  const bool ahead = or_ahead(Bits{s_l, s_m, s_nz[2], s_nz[1]}, tid, &closed);
-  if (in) {
-    out[i] = __ldg(perm + i) | (static_cast<int>(first && valid) << 30) |
-             (static_cast<int>((back || ahead) && valid) << 29);
+  if (lane == 0 && warp > 0) {
+    pc = s_last[warp - 1][0];
+    ps = s_last[warp - 1][1];
+    pd = s_last[warp - 1][2];
   }
-  if (tid == 0) s_head = first ? 0 : ahead;  // rows before the first start
-  if (tid == rows - 1) s_tail = back;        // rows from the last start
+  if (lane == 31 && warp < kWarps - 1) {
+    nc = s_first[warp + 1][0];
+    ns = s_first[warp + 1][1];
+  }
+
+  // run starts, and the rows whose keys a row of their pair compares
+  bool first[kRows], same_prev[kRows], same_next[kRows], valid[kRows],
+      keyed[kRows];
+  for (int k = 0; k < kRows; ++k) {
+    const long long i = i0 + k;
+    const bool here = k < in;
+    const int pck = k ? c[k - 1] : pc, psk = k ? s[k - 1] : ps;
+    const int nck = k + 1 < kRows ? c[k + 1] : nc;
+    const int nsk = k + 1 < kRows ? s[k + 1] : ns;
+    valid[k] = c[k] != INT_MAX;
+    same_prev[k] = here && i > 0 && pck == c[k] && psk == s[k];
+    same_next[k] = here && i + 1 < n && nck == c[k] && nsk == s[k];
+    first[k] = here && !same_prev[k];
+    keyed[k] = here && valid[k] && (same_prev[k] || same_next[k]);
+  }
+  const bool halo_keyed = tid == 0 && same_prev[0] && valid[0];
+
+  // every gather first, then the keys
+  float p[kRows][3], hpos[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < kRows; ++k) {
+    if (keyed[k]) {
+      const float* q = positions + 3LL * pm[k];
+      p[k][0] = __ldg(q);
+      p[k][1] = __ldg(q + 1);
+      p[k][2] = __ldg(q + 2);
+    } else {
+      p[k][0] = p[k][1] = p[k][2] = 0.0f;
+    }
+  }
+  if (halo_keyed) {
+    const float* q = positions + 3LL * hp;
+    hpos[0] = __ldg(q);
+    hpos[1] = __ldg(q + 1);
+    hpos[2] = __ldg(q + 2);
+  }
+  int last_key[6] = {0, 0, 0, 0, 0, 0}, prev_key[6];
+  if (keyed[kRows - 1]) row_keys(p[kRows - 1], cs, rad, last_key);
+  if (lane == 31)
+    for (int j = 0; j < 6; ++j) s_keys[warp][j] = last_key[j];
+  for (int j = 0; j < 6; ++j)
+    prev_key[j] = __shfl_up_sync(kFull, last_key[j], 1);
+  if (halo_keyed) row_keys(hpos, cs, rad, prev_key);
+  __syncthreads();
+  if (lane == 0 && warp > 0)
+    for (int j = 0; j < 6; ++j) prev_key[j] = s_keys[warp - 1][j];
+
+  // mismatches: a key change or a near-tie with the row before
+  bool mis[kRows];
+  int dp = pd;
+  for (int k = 0; k < kRows; ++k) {
+    int key[6];
+    if (k == kRows - 1) {
+      for (int j = 0; j < 6; ++j) key[j] = last_key[j];
+    } else if (keyed[k]) {
+      row_keys(p[k], cs, rad, key);
+    } else {
+      for (int j = 0; j < 6; ++j) key[j] = prev_key[j];
+    }
+    mis[k] = false;
+    if (same_prev[k] && valid[k]) {
+      bool diff = false;
+      for (int j = 0; j < 6; ++j) diff = diff || key[j] != prev_key[j];
+      const int gap = static_cast<int>(static_cast<unsigned>(d[k]) -
+                                       static_cast<unsigned>(dp));
+      const float df = __int_as_float(d[k]), dpf = __int_as_float(dp);
+      const float pmax =
+          max_nan(max_nan(fabsf(p[k][0]), fabsf(p[k][1])), fabsf(p[k][2]));
+      const float dc = df != df ? df : fmaxf(df, 0.0f);
+      const float thr =
+          pc_hex::mul(pc_hex::mul(kNearTieScale, pmax), __fsqrt_rn(dc));
+      mis[k] = diff || gap <= kNearTieUlps || pc_hex::sub(df, dpf) <= thr;
+    }
+    for (int j = 0; j < 6; ++j) prev_key[j] = key[j];
+    dp = d[k];
+  }
+
+  // run starts, run ends (the next row starts a run or there is none) and
+  // mismatches as ballot words: a thread's rows are kRows bits of a word
+  unsigned wf = 0, wm = 0, wl = 0;
+  for (int k = 0; k < kRows; ++k) {
+    wf |= static_cast<unsigned>(first[k]) << k;
+    wm |= static_cast<unsigned>(mis[k]) << k;
+    wl |= static_cast<unsigned>(k < in && !same_next[k]) << k;
+  }
+  const int shift = kRows * (lane % kLanesPerWord);
+  wf <<= shift;
+  wm <<= shift;
+  wl <<= shift;
+  for (int o = 1; o < kLanesPerWord; o <<= 1) {
+    wf |= __shfl_xor_sync(kFull, wf, o);
+    wm |= __shfl_xor_sync(kFull, wm, o);
+    wl |= __shfl_xor_sync(kFull, wl, o);
+  }
+  if (lane % kLanesPerWord == 0) {
+    const int w = warp * kRows + lane / kLanesPerWord;
+    s_f[w] = wf;
+    s_m[w] = wm;
+    s_l[w] = wl;
+  }
+  __syncthreads();
+  const unsigned nz_f = __ballot_sync(kFull, s_f[lane] != 0);
+  const unsigned nz_m = __ballot_sync(kFull, s_m[lane] != 0);
+  const unsigned nz_l = __ballot_sync(kFull, s_l[lane] != 0);
+
+  // each row: the OR of its run's part in the tile, from the part before
+  // the thread's rows (or_back), its rows, and the part after (or_ahead)
+  const bool before = tid > 0 && or_back(Bits{s_f, s_m, nz_f, nz_m}, r0 - 1);
+  const bool after = same_next[kRows - 1] && tid + 1 < kThreads &&
+                     or_ahead(Bits{s_l, s_m, nz_l, nz_m}, r0 + kRows);
+  bool fwd[kRows];
+  bool run = before;
+  for (int k = 0; k < kRows; ++k) {
+    run = (run && !first[k]) || mis[k];
+    fwd[k] = run;
+  }
+  int packed[kRows];
+  run = after;
+  for (int k = kRows - 1; k >= 0; --k) {
+    if (k + 1 < kRows && first[k + 1]) run = false;
+    run = run || mis[k];
+    packed[k] = pm[k] | (static_cast<int>(first[k] && valid[k]) << 30) |
+                (static_cast<int>((fwd[k] || run) && valid[k]) << 29);
+  }
+  store_rows<kRows, kVec>(out, i0, in, packed);
+  __threadfence();  // the rows are visible before the tile's status
   __syncthreads();
 
-  if (tid == 0) {
-    const unsigned nf = s_nz[0];
-    int first_start = kThreads, last_start = kThreads;
-    if (nf) {
-      const int w0 = __ffs(nf) - 1, w1 = 31 - __clz(nf);
+  if (warp == 0) {
+    // the tile's summary: its first and last run start, the mismatch OR
+    // of its head (rows before the first start) and of its tail (rows
+    // from the last start)
+    const bool has_start = nz_f != 0;
+    int first_start = rows, last_start = 0;
+    if (has_start) {
+      const int w0 = __ffs(nz_f) - 1, w1 = 31 - __clz(nz_f);
       first_start = 32 * w0 + __ffs(s_f[w0]) - 1;
       last_start = 32 * w1 + 31 - __clz(s_f[w1]);
     }
-    summary[blockIdx.x] = static_cast<int>(nf != 0) | (s_head << 1) |
-                          (s_tail << 2) | (first_start << kFirstShift) |
-                          (last_start << kLastShift);
-    __threadfence();  // the summary is visible before the ticket counts it
-    s_last_block = atomicAdd(ticket, 1u) == static_cast<unsigned>(tiles - 1);
+    const int lo = 32 * lane;
+    const unsigned head_mask =
+        first_start >= lo + 32 ? kFull
+                               : (first_start <= lo ? 0u : bits_lt(first_start - lo));
+    const unsigned tail_mask =
+        last_start <= lo ? kFull
+                         : (last_start >= lo + 32 ? 0u : ~bits_lt(last_start - lo));
+    const bool head_or = __any_sync(kFull, (s_m[lane] & head_mask) != 0);
+    const bool tail_or = __any_sync(kFull, (s_m[lane] & tail_mask) != 0);
+    if (lane == 0) {
+      publish(status + tile, epoch,
+              has_start ? kPrefix | (tail_or ? kOrBit : 0u) |
+                              static_cast<unsigned>(begin + last_start)
+                        : (tail_or ? kOrBit : 0u));
+    }
+    long long fix_lo = 0, fix_hi = 0, own_hi = 0;
+    if (!(s_f[0] & 1u)) {  // row 0 continues a run from the tiles before
+      unsigned start;
+      bool in_or;
+      look_back(status, tile, epoch, &start, &in_or);
+      if (!has_start && lane == 0) {
+        publish(status + tile, epoch,
+                kPrefix | (in_or || tail_or ? kOrBit : 0u) | start);
+      }
+      // the run ends here: a start follows in the tile, or none does and
+      // the tile's last row ends its run
+      const int e = rows - 1;
+      const bool ends = has_start || ((s_l[e >> 5] >> (e & 31)) & 1u);
+      if (ends && (in_or || head_or)) {
+        fix_lo = start;
+        fix_hi = begin;
+      }
+      if (ends && in_or) own_hi = first_start;
+    }
+    if (lane == 0) {
+      s_fix[0] = fix_lo;
+      s_fix[1] = fix_hi;
+      s_fix[2] = own_hi;
+    }
   }
   __syncthreads();
-  if (!s_last_block) return;
-  __threadfence();
-  scan_tiles(summary, carry, tiles, s_f, s_m, s_nz);
+  for (long long r = s_fix[0] + tid; r < s_fix[1]; r += kThreads)
+    atomicOr(out + r, kSuspect);
+  for (long long r = tid; r < s_fix[2]; r += kThreads)
+    atomicOr(out + begin + r, kSuspect);
 }
 
-__global__ void __launch_bounds__(kThreads) mark_pack_resolve(
-    const int* __restrict__ summary, const int* __restrict__ carry, long long n,
-    int* __restrict__ out) {
-  const int c = __ldg(carry + blockIdx.x);
-  if (c == 0) return;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int s = __ldg(summary + blockIdx.x);
-  const int tid = threadIdx.x;
-  const int first_start = (s >> kFirstShift) & kStartMask;
-  const int last_start = (s >> kLastShift) & kStartMask;
-  // no start in the tile: every row is in the run that crosses it
-  const bool flag = !(s & 1) || (tid < first_start && (c & 1)) ||
-                    (tid >= last_start && (c & 2));
-  if (flag) out[i] |= 1 << 29;
+bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+}
+
+template <int kRows>
+cudaError_t launch(const int* ch, const int* sh, const int* db,
+                   const int* perm, const float* positions,
+                   const float* cell_size, const float* radius, long long n,
+                   int* out, unsigned long long* status, unsigned* counter,
+                   unsigned base, unsigned epoch, int tiles,
+                   cudaStream_t stream) {
+  constexpr int kThreads = kTileRows / kRows;
+  if (aligned16(ch) && aligned16(sh) && aligned16(db) && aligned16(perm) &&
+      aligned16(out)) {
+    mark_pack_kernel<kRows, true><<<tiles, kThreads, 0, stream>>>(
+        ch, sh, db, perm, positions, cell_size, radius, n, out, status,
+        counter, base, epoch);
+  } else {
+    mark_pack_kernel<kRows, false><<<tiles, kThreads, 0, stream>>>(
+        ch, sh, db, perm, positions, cell_size, radius, n, out, status,
+        counter, base, epoch);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t. n in [1, 2^29] (perm must fit below the flag
-// bits); ``scratch`` holds 2 * ceil(n / 512) + 1 ints: the tile summaries,
-// their carries and the ticket.
+// bits). ``status`` holds ``capacity`` words, at least ceil(n / 1024), and
+// ``counter`` is the tile counter; both belong to this stream alone and
+// were zeroed once. ``base`` is the counter's value when this call starts
+// (the calls before on the stream added their tile counts to it, mod
+// 2^32) and ``epoch`` a tag no earlier call on this scratch used, not 0
+// (a zeroed word carries none).
 extern "C" int pc_mark_pack(const int* ch, const int* sh, const int* db,
                             const int* perm, const float* positions,
                             const float* cell_size, const float* radius,
-                            long long n, int* out, int* scratch,
+                            long long n, int* out, unsigned long long* status,
+                            long long capacity, unsigned* counter,
+                            unsigned base, unsigned epoch,
                             void* stream_handle) {
-  if (n < 1 || n > (1LL << 29)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > (1LL << 29) || epoch == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (n + kTileRows - 1) / kTileRows;
+  if (tiles > capacity) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int tiles = static_cast<int>((n + kThreads - 1) / kThreads);
-  int* summary = scratch;
-  int* carry = scratch + tiles;
-  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + 2LL * tiles);
-  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mark_pack_tiles<<<tiles, kThreads, 0, stream>>>(
-      ch, sh, db, perm, positions, cell_size, radius, n, tiles, out, summary,
-      carry, ticket);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mark_pack_resolve<<<tiles, kThreads, 0, stream>>>(summary, carry, n, out);
-  return static_cast<int>(cudaGetLastError());
+  const auto run = n <= kFewRows ? launch<2> : launch<4>;
+  return static_cast<int>(run(ch, sh, db, perm, positions, cell_size, radius,
+                              n, out, status, counter, base, epoch,
+                              static_cast<int>(tiles), stream));
 }

@@ -218,21 +218,10 @@ def _first_of_run(ch_s, sh_s):
     return same_hash, first
 
 
-def any_in_run(first, flags):
-    """Per row: whether any row of its run holds ``flags``, the runs
-    starting where ``first`` is set (one segment maximum over the run
-    ids)."""
-    run = (torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32)
-           - 1).long()
-    hit = torch.zeros(first.shape[0], dtype=torch.int32, device=first.device)
-    hit = hit.scatter_reduce(0, run, flags.to(torch.int32), reduce="amax")
-    return hit[run] > 0
-
-
 def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     """One dedup pass over a padded batch, all per-row outputs
-    (dedup.py:263-320): B2 with its keys, sort4, then the gathers and the
-    run fill in torch.
+    (dedup.py:263-320): B2 with its keys, sort4, the sorted rows' keys
+    gathered in torch, and B3's winner and suspect bits.
 
     Args: (N, 3) f32 positions, (N,) bool valid mask, and the f32 scalars
     cell size, hex slot radius and next hierarchy's cell size.
@@ -253,17 +242,12 @@ def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     next_cell_idx_s = next_cell_idx[p]
     valid_s = valid[p]
 
-    same_hash, first = _first_of_run(ch_s, sh_s)
-    winner = first & valid_s
-
-    # collision audit: a run mixing two real keys has an adjacent mismatch
-    key_s = torch.cat([cell_idx_s, sub_idx_s], dim=1)
-    diff_prev = torch.any(key_s != torch.roll(key_s, 1, dims=0), dim=1)
-    mismatch = same_hash & diff_prev & valid_s
-    near_tie = _near_tie_mask(same_hash, db_s, positions[p], valid_s)
-    mismatch = mismatch | near_tie
-    mismatch[0] = False
-    suspect = any_in_run(first, mismatch) & valid_s
+    # winners and the collision audit (a run mixing two real keys has an
+    # adjacent mismatch, or a near-tie): B3's two flag bits
+    packed = mark_pack(ch_s, sh_s, db_s, perm, positions, cell_size,
+                       sub_cell_radius)
+    winner = (packed & (1 << 30)) != 0
+    suspect = (packed & (1 << 29)) != 0
 
     return (
         perm, winner, valid_s, cell_idx_s, sub_idx_s, dist_s,

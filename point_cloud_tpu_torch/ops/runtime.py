@@ -154,7 +154,8 @@ def load_kernels():
         lib.pc_quantize_hash.restype = ctypes.c_int
         lib.pc_quantize_hash.argtypes = [ptr] * 7 + [i64] + [ptr] * 9
         lib.pc_mark_pack.restype = ctypes.c_int
-        lib.pc_mark_pack.argtypes = [ptr] * 7 + [i64, ptr, ptr, ptr]
+        lib.pc_mark_pack.argtypes = ([ptr] * 7 + [i64, ptr, ptr, i64, ptr]
+                                     + [ctypes.c_uint] * 2 + [ptr])
         build_info.update(path=str(lib_path), seconds=seconds)
         _lib = lib
         return _lib

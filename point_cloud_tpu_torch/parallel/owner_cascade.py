@@ -8,9 +8,10 @@ each owner runs the global winner-of-winners sort over only its slots
 ``sort4`` (the hand-written kernel on the card): stage A's hash sort, the
 routing sort, and stage B's arrival pre-sort and hash sort; the two hash
 sorts take their columns from B2 (``ops.quantize_hash``, one launch
-each). Every sorted length is a power of two of at least 1024: the batch
-pads to 1024·N·2^k rows (2^k·1024 a shard), and stage B pads to a pow2
-bucket.
+each), and B3 (``ops.mark_pack``, one launch each) marks and audits
+their sorted rows. Every sorted length is a power of two of at least
+1024: the batch pads to 1024·N·2^k rows (2^k·1024 a shard), and stage B
+pads to a pow2 bucket.
 
 Ownership is keyed by the slot hash, not the cell hash: a slot's winner
 must be decided by exactly one shard, and slot-keyed routing stays
@@ -37,11 +38,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.hex import (
-    f32_scalar, torch_axial_from_world, torch_axial_to_offset,
-    torch_cell_index,
-)
+from ..core.hex import f32_scalar
 from ..ops import dedup as dedup_mod
+from ..ops.mark_pack import mark_pack
 from ..ops.quantize_hash import quantize_hash
 from ..ops.sort import sort4
 from .dedup import shard_rows, shard_slices
@@ -65,37 +64,18 @@ def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def _winner_and_suspect(ch_s, sh_s, db_s, pos_s, cell_size,
+def _winner_and_suspect(ch_s, sh_s, db_s, perm, positions, cell_size,
                         sub_cell_radius):
     """Winner flags + collision audit over hash-sorted rows
-    (owner_cascade.py:70-111): the true keys recomputed from the sorted
-    positions; a run holding a key mismatch or a near-tie is suspect.
-    Returns (winner, suspect, valid_s).
-
-    The reference spreads the flags over each run with cumsum, cummax
-    and a reversed cummin; a mismatch never falls on a run's first row
-    (it needs the previous row's hash), so that is "any mismatch in the
-    run", which here is one segment maximum (``ops.dedup.any_in_run``,
-    as ``ops.dedup.dedup_pass`` has it): torch's CUDA
-    cummax/cummin scans carry an index and took 17.7 of the pass's 25 ms
-    of device time at 2^20 rows on four shards (chip_smoke.py phase 8,
-    H100 80GB HBM3, 700 W)."""
-    valid_s = ch_s != _I32_MAX
-    same_hash, first = dedup_mod._first_of_run(ch_s, sh_s)
-    winner = first & valid_s
-
-    cell_idx_s = torch_cell_index(pos_s, cell_size)
-    sub_idx_s = torch_axial_to_offset(
-        torch_axial_from_world(pos_s, sub_cell_radius))
-    key_s = torch.cat([cell_idx_s, sub_idx_s], dim=1)
-    diff_prev = torch.any(key_s != torch.roll(key_s, 1, dims=0), dim=1)
-    mismatch = same_hash & diff_prev & valid_s
-    near_tie = dedup_mod._near_tie_mask(same_hash, db_s, pos_s, valid_s)
-    mismatch = mismatch | near_tie
-    mismatch[0] = False
-
-    suspect = dedup_mod.any_in_run(first, mismatch) & valid_s
-    return winner, suspect, valid_s
+    (owner_cascade.py:70-111): B3 (``ops.mark_pack``; its plain version on
+    the CPU) on the sorted columns and the unsorted ``positions`` that
+    ``perm`` indexes, which recomputes the true keys of the sorted rows; a
+    run holding a key mismatch or a near-tie is suspect. Returns (packed,
+    winner, suspect): B3's ``perm | winner << 30 | suspect << 29`` and its
+    two flag bits."""
+    packed = mark_pack(ch_s, sh_s, db_s, perm, positions, cell_size,
+                       sub_cell_radius)
+    return packed, (packed & WINNER_BIT) != 0, (packed & SUSPECT_BIT) != 0
 
 
 def _check_pack_limits(shard_size: int, n_pad: int) -> None:
@@ -130,9 +110,8 @@ def _owner_stage_a(shard: int, positions, valid, cell_size,
     # ---- stage A: local hash sort + winner/suspect flags ----------------
     ch_s, sh_s, db_s, perm, _, _, _ = dedup_mod._hash_sort(
         positions, valid, cell_size, sub_cell_radius)
-    pos_s = positions[perm.long()]
-    winner, suspect, _ = _winner_and_suspect(
-        ch_s, sh_s, db_s, pos_s, cell_size, sub_cell_radius)
+    packed, winner, suspect = _winner_and_suspect(
+        ch_s, sh_s, db_s, perm, positions, cell_size, sub_cell_radius)
 
     # ---- owner routing --------------------------------------------------
     # dest = uniform hash of the slot identity, folding in the cell hash
@@ -154,6 +133,7 @@ def _owner_stage_a(shard: int, positions, valid, cell_size,
 
     # spilled, per stage-A-sorted row: src_row is a permutation of the rows
     src = src_row.long()
+    pos_s = positions[perm.long()]
     spilled = torch.zeros(ss, dtype=torch.bool, device=dev)
     spilled[src] = (dest_s < n_dest) & ~shipped
 
@@ -168,10 +148,8 @@ def _owner_stage_a(shard: int, positions, valid, cell_size,
     send_arr = torch.full((slots + 1,), -1, dtype=torch.int32, device=dev)
     send_arr[flat] = arrival_g[src]
 
-    out_a = (perm
-             | (spilled.to(torch.int32) << 28)
-             | (suspect.to(torch.int32) << 29)
-             | (winner.to(torch.int32) << 30))
+    # B3's word; perm < 2^28 (_check_pack_limits) leaves bit 28 free
+    out_a = packed | (spilled.to(torch.int32) << 28)
     return out_a, send_pos[:slots], send_arr[:slots]
 
 
@@ -207,14 +185,12 @@ def _owner_stage_b(shard: int, recv_pos, recv_arr, cell_size,
                                         sub_cell_radius)
     rank = _iota(n_b, dev)
     ch_bs, sh_bs, db_bs, rank_s = sort4(ch_b, sh_b, dist_bits, rank)
-    r = rank_s.long()
-    arr_bs = arr_b2[r]
-    pos_bs = pos_b2[r]
-    winner_b, suspect_b, valid_bs = _winner_and_suspect(
-        ch_bs, sh_bs, db_bs, pos_bs, cell_size, sub_cell_radius)
+    arr_bs = arr_b2[rank_s.long()]
+    packed, _, _ = _winner_and_suspect(
+        ch_bs, sh_bs, db_bs, rank_s, pos_b2, cell_size, sub_cell_radius)
+    valid_bs = ch_bs != _I32_MAX
     return (torch.where(valid_bs, arr_bs + 1, torch.zeros_like(arr_bs))
-            | (suspect_b.to(torch.int32) << 29)
-            | (winner_b.to(torch.int32) << 30))
+            | (packed & (SUSPECT_BIT | WINNER_BIT)))
 
 
 def owner_pass(mesh: Mesh, pos_shards, valid_shards, cell_size,

@@ -23,12 +23,24 @@ On the CPU (JAX on the CPU too, imported inside the tests):
   saturate the i32 casts. Non-finite coordinates are held against the
   NumPy oracle's keys only: NaN bits differ between the CPU and the card;
 - the wrappers' refusals (dtype, shape, device, contiguity) and that a
-  CPU call launches nothing.
+  CPU call launches nothing;
+- B3's run spread on sorted columns built directly (``run_case``): one
+  run of 1, a tile less one, a tile, a tile and one, 2^15 rows or the
+  whole array among short runs and padding, a mismatch (a key change or
+  a near-tie) only in the run's first, a middle or its last tile, or
+  none; ``mark_pack_reference`` against a NumPy run-spread oracle;
+- the owner cascade's ``_winner_and_suspect`` and the full
+  ``dedup_pass`` take their flags from B3: equal to
+  ``mark_pack_reference``'s bits on forced collisions and near-ties.
 
 The ``cuda`` cases (skipped without a card) hold each kernel bit-equal to
 its plain version on the card over the same shapes, non-finite ones too,
-at 2^15-2^22 rows, the light and resident passes equal to the CPU's, and
-one B2 and one B3 launch a pass. On the card, without JAX:
+at 2^15-2^22 rows and on every ``run_case``, the light and resident
+passes equal to the CPU's, and one B2 and one B3 launch a pass; B3 over
+200 calls of mixed lengths queued back to back on one stream, and passes
+from three threads on two streams at once (as the pipelined converter
+runs them), each equal to its plain result: no state leaks from one call
+to the next. On the card, without JAX:
 ``PCT_TEST_PLATFORM=gpu python -m pytest tests/test_torch_pass_kernels.py -m cuda``.
 """
 
@@ -44,6 +56,7 @@ from point_cloud_tpu_torch.ops import dedup as td
 from point_cloud_tpu_torch.ops import mark_pack as tmark
 from point_cloud_tpu_torch.ops import quantize_hash as tquant
 from point_cloud_tpu_torch.ops.sort import sort4
+from point_cloud_tpu_torch.parallel import owner_cascade
 
 I32_MAX = 2**31 - 1
 
@@ -397,6 +410,147 @@ def test_mark_pack_refuses(kind):
         tmark.mark_pack(*cols, pos, *a[2:])
 
 
+# --- B3's run spread on sorted columns built directly ----------------------
+
+TILE = tmark.TILE_ROWS
+RUN_CELL_SIZE, RUN_RADIUS = np.float32(1.0), np.float32(0.05)
+P_RUN = (0.3, 0.3, 0.3)  # every row's position...
+P_KEY = (5.3, 0.3, 0.3)  # ...but a key change's: another cell
+LEAD, TRAIL, PAD = TILE // 2 + 3, 700, 37  # rows around the long run
+
+
+def _run_bounds(length):
+    """(first row, end row, n) of the long run of ``run_case``."""
+    if length == "whole":
+        n = 3 * TILE + 5
+        return 0, n, n
+    lead = TILE if length == "aligned" else LEAD
+    size = TILE if length == "aligned" else length
+    return lead, lead + size, lead + size + TRAIL + PAD
+
+
+def _mismatch_row(length, place):
+    """The row that carries the planned mismatch, or None."""
+    a, b, _ = _run_bounds(length)
+    first_tile, last_tile = a // TILE, (b - 1) // TILE
+    if place == "first":
+        return a + 1
+    if place == "last":
+        return b - 2
+    if place == "middle":
+        return (first_tile + 1) * TILE + 10
+    return None
+
+
+RUN_CASES = [("n=1", "none")]
+for _length in (1, TILE - 1, TILE, TILE + 1, 1 << 15, "whole", "aligned"):
+    _a, _b, _ = _run_bounds(_length)
+    _tiles = (_b - 1) // TILE - _a // TILE + 1
+    _places = ["none"]
+    if _b - _a > 2:
+        _places += ["first", "last"] + (["middle"] if _tiles > 2 else [])
+    RUN_CASES += [(_length, _place) for _place in _places]
+
+
+def run_case(length, place, seed=0):
+    """Sorted columns and positions with one long run, and the rows that
+    hold a mismatch. Short runs of 1-3 rows surround it, then padding
+    rows (cell hash i32::MAX); distance bits rise by 1,000 ulps a row
+    (no near-tie). A planned mismatch is a near-tie (a 3-ulp step) on an
+    even ``seed``, else a key change (the row's position in another
+    cell: a mismatch on it and on the row after). Returns (ch, sh, db,
+    perm, positions, mismatch) as NumPy arrays."""
+    rng = np.random.default_rng(seed)
+    if length == "n=1":
+        a, b, n = 0, 1, 1
+    else:
+        a, b, n = _run_bounds(length)
+    run_id = np.zeros(n, np.int64)
+    sizes = rng.integers(1, 4, n)
+    r, k = 0, 0
+    while r < n:  # short runs, then the long one at [a, b)
+        size = b - a if r == a else min(int(sizes[k]), (a if r < a else n) - r)
+        run_id[r:r + size] = k
+        r, k = r + size, k + 1
+    ch = (run_id * 11 + 5).astype(np.int32)
+    sh = (run_id * 7 % 5).astype(np.int32)
+    db = (0x3F800000 + 1000 * np.arange(n)).astype(np.int32)
+    pad = slice(n - PAD, n) if length not in ("n=1", "whole") else slice(n, n)
+    ch[pad], sh[pad], db[pad] = I32_MAX, 0, I32_MAX
+    perm = rng.permutation(n).astype(np.int32)
+    positions = np.tile(np.float32(P_RUN), (n, 1))
+    mismatch = np.zeros(n, bool)
+    row = _mismatch_row(length, place) if length != "n=1" else None
+    if row is not None:
+        mismatch[row] = True
+        if seed % 2 == 0:
+            db[row] = db[row - 1] + 3
+        else:
+            positions[perm[row]] = P_KEY
+            mismatch[row + 1] = row + 1 < b
+    return ch, sh, db, perm, positions, mismatch
+
+
+def spread_oracle(ch, sh, perm, mismatch):
+    """NumPy: ``perm | winner << 30 | suspect << 29`` with a run's rows
+    suspect where any row of the run holds a mismatch."""
+    first = np.ones(len(ch), bool)
+    first[1:] = (ch[1:] != ch[:-1]) | (sh[1:] != sh[:-1])
+    valid = ch != I32_MAX
+    run = np.cumsum(first) - 1
+    hit = np.zeros(run[-1] + 1, bool)
+    np.logical_or.at(hit, run, mismatch)
+    return (perm | ((first & valid).astype(np.int32) << 30)
+            | ((hit[run] & valid).astype(np.int32) << 29))
+
+
+def run_args(case, device="cpu"):
+    *cols, positions, _ = case
+    return ([torch.from_numpy(c).to(device) for c in cols],
+            torch.from_numpy(positions).to(device),
+            td.f32_scalar(RUN_CELL_SIZE, device),
+            td.f32_scalar(RUN_RADIUS, device))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("length,place", RUN_CASES)
+def test_mark_pack_reference_spreads_runs(length, place, seed):
+    case = run_case(length, place, seed)
+    cols, positions, cs, radius = run_args(case)
+    got = td.mark_pack_reference(*cols, positions, cs, radius).numpy()
+    want = spread_oracle(case[0], case[1], case[3], case[5])
+    assert np.array_equal(got, want)
+    if place != "none":  # every row of the long run, and only those
+        a, b, _ = _run_bounds(length)
+        assert np.array_equal(np.nonzero((got >> 29) & 1)[0],
+                              np.arange(a, b))
+
+
+@pytest.mark.parametrize("kind", ["collide", "lattice"])
+def test_owner_and_full_pass_flags_are_b3s(kind, monkeypatch):
+    """``_winner_and_suspect`` (both owner stages) and ``dedup_pass`` take
+    winner and suspect from B3: on forced collisions and on a lattice's
+    near-ties they equal ``mark_pack_reference``'s unpacked bits."""
+    n = 1 << 12
+    pos, valid = case("uniform" if kind == "collide" else kind, n, seed=4)
+    if kind == "collide":
+        real = td._hash_cols
+        monkeypatch.setattr(td, "_hash_cols",
+                            lambda cols, primes: real(cols, primes) & 1)
+    args = torch_args(pos, valid, 4)
+    ch_s, sh_s, db_s, perm, *_ = td._hash_sort(*args)
+    want = td.mark_pack_reference(ch_s, sh_s, db_s, perm, args[0], *args[2:])
+    winner, suspect = (want >> 30) & 1 == 1, (want >> 29) & 1 == 1
+    assert suspect.any() and winner.any()
+    packed, w, s = owner_cascade._winner_and_suspect(
+        ch_s, sh_s, db_s, perm, args[0], *args[2:])
+    assert torch.equal(packed, want)
+    assert torch.equal(w, winner) and torch.equal(s, suspect)
+    out = td.dedup_pass(*args, td.f32_scalar(np.float32(0.5), "cpu"))
+    assert torch.equal(out[0], perm)
+    assert torch.equal(out[1], winner) and torch.equal(out[7], suspect)
+
+
 # --- on the card ------------------------------------------------------------
 
 
@@ -491,3 +645,85 @@ def test_resident_pass_on_card_matches_cpu(cuda_device):
     got = td.dedup_pass_resident(*(t.to(cuda_device) for t in host),
                                  *scalars)
     assert torch.equal(got.cpu(), td.dedup_pass_resident(*host, *scalars))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("length,place", RUN_CASES)
+def test_mark_pack_kernel_spreads_runs_on_card(cuda_device, length, place,
+                                               seed):
+    cols, positions, cs, radius = run_args(run_case(length, place, seed),
+                                           cuda_device)
+    got = tmark.mark_pack(*cols, positions, cs, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(got, td.mark_pack_reference(*cols, positions, cs,
+                                                   radius))
+
+
+@pytest.mark.cuda
+def test_mark_pack_kernel_back_to_back_calls(cuda_device):
+    """200 calls of mixed lengths queued on one stream with no wait between
+    them, each equal to its plain result: the tile counter and the status
+    words carry nothing from a call to the next."""
+    cases = [run_args(run_case(length, place, seed), cuda_device)
+             for length, place, seed in (
+                 ("n=1", "none", 0), ("whole", "middle", 1),
+                 (1 << 15, "last", 0), (TILE + 1, "first", 1),
+                 ("aligned", "none", 0), (1 << 15, "middle", 1))]
+    cases += [card_columns("synth", 15, cuda_device),
+              card_columns("all_equal", 16, cuda_device)]
+    calls = []
+    for cols, positions, *scalars in cases[:6]:
+        calls.append((cols, positions, scalars))
+    for cols, args in cases[6:]:
+        calls.append((cols, args[0], args[2:]))
+    want = [td.mark_pack_reference(*cols, positions, *scalars)
+            for cols, positions, scalars in calls]
+    torch.cuda.synchronize()
+    before = tmark.launches
+    got = [tmark.mark_pack(*calls[i % len(calls)][0],
+                           calls[i % len(calls)][1],
+                           *calls[i % len(calls)][2]) for i in range(200)]
+    torch.cuda.synchronize()
+    assert tmark.launches == before + 200
+    for i, g in enumerate(got):
+        assert torch.equal(g, want[i % len(calls)]), i
+
+
+@pytest.mark.cuda
+def test_passes_on_two_streams_from_three_threads(cuda_device):
+    """Light passes from three threads at once, two on the default stream
+    (as the pipelined converter's workers share it) and one on a stream
+    of its own, each equal to the CPU's packed rows."""
+    import threading
+
+    inputs = [case(kind, 1 << 16, seed=s) for s, kind in
+              enumerate(("synth", "all_equal", "lattice", "uniform"))]
+    want = [td.dedup_pass_light(*torch_args(p, v, 2)) for p, v in inputs]
+    args = [torch_args(p, v, 2, cuda_device) for p, v in inputs]
+    side = torch.cuda.Stream(cuda_device)
+    torch.cuda.synchronize()  # the inputs are on the card before any stream
+    start = threading.Barrier(3)
+    errors = []
+
+    def worker(index, stream):
+        try:
+            start.wait()
+            with torch.cuda.stream(stream):
+                got = [td.dedup_pass_light(*args[(index + j) % len(args)])
+                       for j in range(24)]
+                stream.synchronize()
+            for j, g in enumerate(got):
+                if not torch.equal(g.cpu(), want[(index + j) % len(args)]):
+                    errors.append((index, j))
+        except Exception as exc:  # reported below, in the test's thread
+            errors.append((index, repr(exc)))
+
+    default = torch.cuda.default_stream(cuda_device)
+    threads = [threading.Thread(target=worker, args=(i, st)) for i, st in
+               enumerate((default, default, side))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors

@@ -53,9 +53,26 @@ bound so.
 
     python tools/kernel_ab.py frame --parent $P --footprint 5
 
+``pass``: the conversion pass's mark/audit/pack kernel (B3,
+``mark_pack.cu`` with ``hex_keys.cuh``) on the columns ``sort4`` leaves
+from B2 (``quantize_hash``) on the card, as ``chip_smoke.py`` phase 3
+times it: the LiDAR-like cloud (``pass_case("synth")``, seed 1,
+hierarchy 0) at 2^16, 2^18, 2^20 and 2^22 rows, ``uniform`` at 2^20
+(few rows share a hash pair: little to gather) and ``all_equal`` at
+2^20 (every row one run: the look-back's and the fix-up's worst case). Each
+library's packed rows must equal ``mark_pack_reference``'s before it is
+timed; then device time a call (``torch.profiler``: a parent built
+before the one-launch design runs two kernels and a memset, whose
+kernels it sums) and CUDA event time, beside the plain version's and
+the byte bound ``chip_smoke.b3_bytes``. A parent's source is recognised
+by its ``mark_pack_resolve`` kernel and bound with its own C signature.
+
+    python tools/kernel_ab.py pass --parent $P
+
 ``--alt NAME=PATH`` adds another source (``merge``: a ``sorted_merge.cu``;
-``frame``: a directory with ``cull.cu`` and ``splat.cu``) with this
-tree's C entry points, timed beside the others: a candidate change.
+``frame``: a directory with ``cull.cu`` and ``splat.cu``; ``pass``: a
+directory with ``mark_pack.cu`` and ``hex_keys.cuh``) with this tree's C
+entry points, timed beside the others: a candidate change.
 """
 
 from __future__ import annotations
@@ -419,6 +436,116 @@ def ab_frame(args, torch, np, cs, smi: str) -> None:
                  "equal_to_plain": True})
 
 
+# --- pass: B3 ----------------------------------------------------------------
+
+PASS_INPUTS = (("synth", 16), ("synth", 18), ("synth", 20), ("synth", 22),
+               ("uniform", 20), ("all_equal", 20))
+
+
+def mark_pack_launcher(torch, tmark, lib, two_kernels: bool, cols, pos,
+                       scalars):
+    """A launch of ``lib``'s B3 on the sorted columns and its output. A
+    two-kernel parent takes a scratch of 2 ceil(n / 512) + 1 ints; this
+    tree's kernel a tile counter and status words of its own, kept as
+    the wrapper keeps them (``ops.mark_pack._Scratch``)."""
+    ptr, i64, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint
+    lib.pc_mark_pack.restype = ctypes.c_int
+    n = cols[0].shape[0]
+    out = torch.empty(n, dtype=torch.int32, device="cuda")
+    args = [t.data_ptr() for t in (*cols, pos, *scalars)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if two_kernels:
+        lib.pc_mark_pack.argtypes = [ptr] * 7 + [i64, ptr, ptr, ptr]
+        scratch = torch.empty(2 * -(-n // 512) + 1, dtype=torch.int32,
+                              device="cuda")
+
+        def call():
+            return lib.pc_mark_pack(*args, n, out.data_ptr(),
+                                    scratch.data_ptr(), stream)
+    else:
+        lib.pc_mark_pack.argtypes = ([ptr] * 7 + [i64, ptr, ptr, i64, ptr]
+                                     + [u32] * 2 + [ptr])
+        state = tmark._Scratch(torch.device("cuda"))
+        words, tiles = state.words.data_ptr(), -(-n // tmark.TILE_ROWS)
+
+        def call():
+            base, epoch = state.take(tiles)
+            return lib.pc_mark_pack(*args, n, out.data_ptr(), words,
+                                    tmark.MAX_TILES,
+                                    words + 8 * tmark.MAX_TILES, base, epoch,
+                                    stream)
+
+    def launch():
+        rc = call()
+        if rc != 0:
+            raise RuntimeError(f"pc_mark_pack: cudaError {rc}")
+    return launch, out
+
+
+def ab_pass(args, torch, np, cs, smi: str) -> None:
+    from point_cloud_tpu_torch.core.metadata import MetadataConfig
+    from point_cloud_tpu_torch.models.synth import pass_case
+    from point_cloud_tpu_torch.ops import dedup, quantize_hash
+    from point_cloud_tpu_torch.ops import mark_pack as tmark
+    from point_cloud_tpu_torch.ops.sort import sort4
+
+    dirs = {"parent": args.parent, "new": CSRC}
+    dirs.update((name, Path(d)) for name, d in
+                (alt.split("=", 1) for alt in args.alt))
+    libs = build_all({name: [d / "mark_pack.cu"] for name, d in dirs.items()},
+                     args.out)
+    two_kernels = {name: "mark_pack_resolve" in (d / "mark_pack.cu")
+                   .read_text() for name, d in dirs.items()}
+    kernels = {name: ({"mark_pack_tiles": 1, "mark_pack_resolve": 1}
+                      if two_kernels[name] else {"mark_pack_kernel": 1})
+               for name in libs}
+    names = list(libs)
+    config = MetadataConfig()
+    cell_size = config.cell_size(0)
+    for kind, log_n in PASS_INPUTS:
+        n = 1 << log_n
+        pargs = dedup.pass_args(*pass_case(kind, n, seed=1), cell_size,
+                                config.sub_cell_size(cell_size), "cuda")
+        pos, scalars = pargs[0], pargs[2:]
+        cols = sort4(*quantize_hash.quantize_hash(*pargs))
+        want = dedup.mark_pack_reference(*cols, pos, *scalars)
+        launches = {}
+        for name in names:
+            launch, out = mark_pack_launcher(torch, tmark, libs[name],
+                                             two_kernels[name], cols, pos,
+                                             scalars)
+            for _ in range(3):  # a scratch used again holds no stale state
+                out.fill_(-1)
+                launch()
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"{name}'s B3 != plain on {kind} "
+                                         f"2^{log_n}")
+            launches[name] = launch
+
+        def plain():
+            return dedup.mark_pack_reference(*cols, pos, *scalars)
+
+        p1 = cs.cuda_ms(plain, reps=3)
+        ms = interleaved(names, lambda name: (
+            cs.device_kernel_ms(torch, launches[name], kernels[name],
+                                reps=args.reps)))
+        event = interleaved(names, lambda name: cs.cuda_ms(launches[name]))
+        p2 = cs.cuda_ms(plain, reps=3)
+        moved, keyed = cs.b3_bytes(torch, cols[0], cols[1])
+        bound, by = cs.pass_bound_ms(moved, cs.B3_OPS_PER_ROW * n)
+        mean = {name: sum(v) / len(v) for name, v in ms.items()}
+        cs.emit({"kernel": "mark_pack", "input": kind, "n": n,
+                 "keyed_rows": keyed, "order": names + names[::-1],
+                 "ms_runs": ms, "event_ms_runs": event,
+                 "plain_ms_runs": [p1, p2], "bound_ms": bound,
+                 "bound_by": by,
+                 "share_of_bound": {k: bound / m for k, m in mean.items()},
+                 "over_parent": {k: m / mean["parent"]
+                                 for k, m in mean.items()},
+                 "equal_to_plain": True, "device": smi})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="kernel", required=True)
@@ -431,7 +558,8 @@ def main(argv=None) -> int:
     merge.add_argument("--seed", type=int, default=0)
     frame = sub.add_parser("frame", help="K1 and K2, cull.cu and splat.cu")
     frame.add_argument("--footprint", type=int, default=5)
-    for p in (merge, frame):
+    pass_ = sub.add_parser("pass", help="B3, mark_pack.cu")
+    for p in (merge, frame, pass_):
         p.add_argument("--parent", required=True, type=Path,
                        help="a parent commit's csrc directory")
         p.add_argument("--alt", nargs="*", default=[],
@@ -456,8 +584,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     args.out.mkdir(parents=True, exist_ok=True)
-    (ab_merge if args.kernel == "merge" else ab_frame)(args, torch, np, cs,
-                                                      smi)
+    run = {"merge": ab_merge, "frame": ab_frame, "pass": ab_pass}
+    run[args.kernel](args, torch, np, cs, smi)
     return 0
 
 
