@@ -19,24 +19,32 @@ use. Imports no JAX. Phases, one JSON line each:
 3. pass: ``get_pipeline("conversion", n=2^20)`` and ``dedup_pass_light``
    on the card against the same inputs through the port on the CPU,
    exact equality, also for the light pass on every finite shape of
-   ``PASS_SHAPES`` and the resident pass at 2^16; B2 (``quantize_hash``,
-   also in its gather mode) and B3 (``mark_pack``) bit-exact against
-   their plain versions on the card at every length 2^15..2^22 over
-   ``PASS_SHAPES``, forced hash collisions and a resident mix; a
-   ``torch.profiler`` window over one light and one resident pass whose
-   device work must be B2, ``sort4``'s kernels and B3 only (no copy, no
-   memset, no scan), and one over B3 alone: its one kernel, no memset;
-   B2, B3, the light pass and its plain twin timed at 2^18 and 2^20
-   (device time, CUDA events, bounds);
+   ``PASS_SHAPES`` and the resident pass at 2^16; the fused front end
+   (``quantize_sort4``: B2 as the load stage of ``sort4``'s tile kernel,
+   with and without its keys, and in its gather mode) and B3
+   (``mark_pack``) bit-exact against their plain versions on the card at
+   every length 2^15..2^22 over ``PASS_SHAPES``, forced hash collisions
+   and a resident mix; the division helper of ``csrc/hex_keys.cuh``
+   against ``__fdiv_rn`` for every f32 numerator over every divisor of
+   hierarchies 0-7, and for every numerator significand over 73,728
+   divisor significands (both ends of [1, 2) and a stride through it);
+   a ``torch.profiler`` window over one light and one resident pass whose
+   device work must be the fused tile kernel (``quantize_tile``),
+   ``sort4``'s merges and B3 only (no copy, no memset, no scan), and one
+   over B3 alone: its one kernel, no memset; the fused front end (beside
+   its tile kernel alone), B3, the light pass and its plain twin timed
+   at 2^18 and 2^20 (device time, CUDA events, bounds);
 4. slice: a 2^23-point LiDAR-like cloud (the port's ``synth_cloud``)
    written to PLY and converted by the port's CLI at batch 2^18, in
    subprocesses, three times: ``--device`` (the Python-cell
    ``PipelinedConverter``), ``--device-native`` (the C++ merge engine)
    and ``--native`` (the C++ host engine alone). The three stores must be
-   byte-identical, both device runs must have launched the sort kernel,
-   and every length they sorted must be one that phase 2 checked; every
-   pass of theirs must be B2, ``sort4``, B3 (the three launch counts
-   equal). Each subprocess counts its launches from zero, so its count
+   byte-identical, both device runs must have sorted, every length they
+   sorted through the fused front end must be one that phase 3 checked
+   (through ``sort4``, one that phase 2 checked), and every pass of
+   theirs must be the fused front end, then B3 (their launch counts
+   equal, and no ``sort4`` call of its own). Each subprocess
+   counts its launches from zero, so its count
    is its main path's and no other. One more ``--device-native``
    conversion in this process under ``torch.profiler`` gives the card's
    busy share (its store checked too).
@@ -80,11 +88,13 @@ use. Imports no JAX. Phases, one JSON line each:
    timed there and on the largest bucket from a flushed L2.
 8. mesh, the multi-device path, on four logical shards of the one card
    (``make_mesh(devices=[cuda:0] * 4)``): (a) phase 4's PLY through
-   ``MeshConverter`` from zero ``sort4``, B2 and B3 counts, the first
-   call at every sorted length held against ``sort4_reference``, one B2
-   launch for every ``_hash_sort`` and ``_hashes_for`` call and one B3
-   launch for every B2 launch (stage A and stage B mark their sorted
-   rows with B3), the store byte-identical to phase 4's ``--native``
+   ``MeshConverter`` from zero ``sort4``, front end and B3 counts, the
+   first call of ``sort4`` and of the fused front end at every sorted
+   length held against its plain version, one fused front end for every
+   hash sort (stage A's ``_hash_sort``, stage B's ``quantize_sort4``),
+   one B3 launch for each (both stages mark their sorted rows with B3)
+   and as many ``sort4`` calls (the routing and arrival sorts), the store
+   byte-identical to phase 4's ``--native``
    one; ``--mesh 1`` through the CLI, the same; a forced-spill pass
    (capacity 1, 2^18 points) against the host ``Converter``; the
    owner-sharded pass timed alone at 2^20 rows with its device time by
@@ -125,9 +135,10 @@ included), ``plain_ms`` the event time of the plain version, and
 means the inputs were still in the 50 MB L2), with ``sort4`` 16 B read
 and 16 B written a row, ``cull_classify`` as ``cull_bound_ms`` says and
 ``sorted_merge`` the rows up to the ``_NO_ID`` tail (``merge_bound_ms``),
-``quantize_hash`` (B2) 29 B a row and ``mark_pack`` (B3) what
-``b3_bytes`` counts on the run's sorted columns, each against its
-operations at the card's f32 rate.
+``quantize_sort4`` (the fused front end) its 13 B read and 16 B of
+sorted columns written a row (with ``sort4_bound_ms`` beside it) and
+``mark_pack`` (B3) what ``b3_bytes`` counts on the run's sorted columns,
+each against its operations at the card's f32 rate.
 Every timed block starts on a card held busy for WARM_S seconds (an idle
 H100 clocks 840 of 1,980 MHz), and K1, K3 and K4 are timed from an L2
 flushed before each call, as a frame finds it. ``splat_raster``'s is
@@ -402,20 +413,22 @@ def sort4_library_ms(torch, cols, sorted_cols, reps: int = 7) -> float:
     return cuda_ms(call, reps=reps)
 
 
-# --- phase 3: the conversion pass, B2 -> sort4 -> B3 ----------------------
+# --- phase 3: the conversion pass, B2 in sort4's tile kernel -> B3 --------
 
 PASS_LOG_N = tuple(range(15, 23))  # every bucket the slice and mesh sort
 PASS_TIMED_LOG_N = (18, 20)
 PASS_FINITE = ("synth", "uniform", "all_equal", "lattice", "far",
                "saturate")  # models.synth.PASS_SHAPES but "nonfinite"
 PASS_CPU_LOG_N = 16  # the light pass on the card against the CPU's
-# Bytes a row each kernel must move (each input read once, each output
-# written once): B2 reads 12 B of position and 1 B of valid and writes the
-# four 4-byte sort columns; its gather mode reads a 4 B source and 12 B of
-# position and writes the columns and the 12 B gathered position. B3's
-# depend on the data (b3_bytes).
-B2_BYTES_PER_ROW = 29
-B2_GATHER_BYTES_PER_ROW = 44
+# Bytes a row each kernel must move as a function (each input read once,
+# each output written once). The fused front end (ops.quantize_hash.
+# quantize_sort4: B2 as the load stage of sort4's tile kernel, then
+# sort4's merges) reads 12 B of position and 1 B of valid and writes the
+# four 4-byte sorted columns; its gather mode reads a 4 B source and 12 B
+# of position and writes the columns and the 12 B gathered position.
+# B3's depend on the data (b3_bytes).
+FRONT_BYTES_PER_ROW = 29
+FRONT_GATHER_BYTES_PER_ROW = 44
 # Operations a row, counted from the kernels' source (an IEEE division or
 # square root, a floor, a compare, a select, an integer multiply, add,
 # shift or logic operation each one): B2's hex math ~45 f32, seven
@@ -424,10 +437,56 @@ B2_GATHER_BYTES_PER_ROW = 44
 # the neighbour compares and the run bits ~35 on every row. Over the
 # H100's 67 TFLOP/s f32 rate (PEAK_OPS_PER_S) both are a fifth or less of
 # their byte time.
-B2_OPS_PER_ROW = 125
+FRONT_OPS_PER_ROW = 125
 B3_OPS_PER_ROW = 100
-PASS_KERNELS = {"b2": {"quantize_hash_kernel": 1},
-                "b3": {"mark_pack_kernel": 1}}
+PASS_KERNELS = {"b3": {"mark_pack_kernel": 1}}
+# divisor significands of the division sweep: both ends of [1, 2), where
+# RN(1/b) is farthest from 1/b in ulps of the quotient, and a stride
+# through it (the test suite's cuda case sweeps all 2^23)
+DIVISION_SWEEP = ((0, 1, 4096), ((1 << 23) - 4096, 1, 4096), (1, 128, 65536))
+
+
+def front_kernels(n: int) -> dict:
+    """The kernels one fused front end of ``n`` rows launches: B2's tile
+    sort (``quantize_tile``), then sort4's merges."""
+    return {"quantize_tile": 1, "sort4_merge": sort4_kernels(n)["sort4_merge"]}
+
+
+def division_check(torch, qh) -> dict:
+    """hex_keys.cuh's division helper against __fdiv_rn on the card: every
+    f32 numerator bit pattern over the five divisors of each of
+    MetadataConfig's hierarchies 0-7; fails on any differing bit."""
+    import numpy as np
+
+    from point_cloud_tpu_torch.core.metadata import MetadataConfig
+
+    config = MetadataConfig()
+    cell_sizes = [config.cell_size(h) for h in range(8)]
+    radii = [float(np.float32(config.sub_cell_size(cs)) / np.float32(2.0))
+             for cs in cell_sizes]
+    t0 = time.perf_counter()
+    bad, first, taken = qh.division_mismatches(cell_sizes, radii)
+    seconds = time.perf_counter() - t0
+    if int(bad.sum()):
+        raise AssertionError(f"the division helper != __fdiv_rn: {bad} "
+                             f"(first numerators {first})")
+    # every numerator in [2^-60, 2^61) and +-0 takes the fast quotient
+    if not bool((taken == 121 * 2**24 + 2).all()):
+        raise AssertionError(f"the fast quotient took {taken} numerators")
+    # every numerator significand over divisor significands of any config
+    t1 = time.perf_counter()
+    for first, stride, count in DIVISION_SWEEP:
+        wrong, pair = qh.division_sweep(first, stride, count)
+        if wrong:
+            raise AssertionError(f"the division helper != __fdiv_rn on "
+                                 f"{wrong} significand pairs (first: "
+                                 f"divisor, numerator bits {pair})")
+    return {"divisors": int(bad.numel()), "numerators_each": 1 << 32,
+            "fast_numerators_each": 121 * 2**24 + 2, "mismatches": 0,
+            "hierarchies": 8, "seconds": seconds,
+            "sweep_divisor_significands": sum(c for *_, c in DIVISION_SWEEP),
+            "sweep_numerator_significands": 1 << 23, "sweep_mismatches": 0,
+            "sweep_seconds": time.perf_counter() - t1}
 
 
 def bits_err(torch, got, ref) -> int:
@@ -470,16 +529,19 @@ def b3_bytes(torch, ch_s, sh_s) -> tuple[int, int]:
 
 
 def check_pass_kernels(torch, np, dedup, qh, mp, sort) -> dict:
-    """B2 and B3 against their plain versions on the card, bit for bit,
-    at every length of PASS_LOG_N over PASS_SHAPES, forced collisions (B3)
-    and the resident gather (B2's gather mode, then B3 on its rows)."""
+    """The fused front end and B3 against their plain versions on the
+    card, bit for bit, at every length of PASS_LOG_N over PASS_SHAPES
+    (the front end with and without its keys), forced collisions (B3, on
+    the plain B2 columns cut to their low bit and sorted by ``sort4``) and
+    the resident gather (the front end's gather mode, then B3 on its
+    rows)."""
     from point_cloud_tpu_torch.core.metadata import MetadataConfig
     from point_cloud_tpu_torch.models.synth import (
         PASS_SHAPES, pass_case, resident_case,
     )
 
     config = MetadataConfig()
-    checked, worst = [], {"b2": 0, "b3": 0}
+    checked, worst = [], {"front": 0, "b3": 0}
     for log_n in PASS_LOG_N:
         n = 1 << log_n
         cs = config.cell_size(log_n % 8)
@@ -491,26 +553,35 @@ def check_pass_kernels(torch, np, dedup, qh, mp, sort) -> dict:
                 scalars = dedup.pass_args(np.zeros((1, 3), np.float32),
                                           np.ones(1, bool), cs, scs,
                                           "cuda")[2:]
-                got = qh.quantize_hash_resident(res, src, ext, *scalars)
-                pos, valid = dedup.resident_rows_reference(res, src, ext)
-                ref = dedup.quantize_hash_reference(pos, valid, *scalars)
-                ref += (pos,)
+                fronts = [(qh.quantize_sort4_resident(res, src, ext,
+                                                      *scalars),
+                           dedup.quantize_sort4_resident_reference(
+                               res, src, ext, *scalars))]
             else:
                 shape = "uniform" if kind == "collide" else kind
                 args = dedup.pass_args(*pass_case(shape, n, seed=log_n),
                                        cs, scs, "cuda")
-                pos, scalars = args[0], args[2:]
-                got = qh.quantize_hash(*args, keys=True)
-                ref = dedup.quantize_hash_reference(*args, keys=True)
+                scalars = args[2:]
+                fronts = [] if kind == "collide" else [
+                    (qh.quantize_sort4(*args, keys=keys),
+                     dedup.quantize_sort4_reference(*args, keys=keys))
+                    for keys in (False, True)]
             torch.cuda.synchronize()
-            err = bits_err(torch, got, ref)
-            worst["b2"] = max(worst["b2"], err)
-            if err:
-                raise AssertionError(f"B2 != plain at 2^{log_n} {kind}")
-            cols = got[:4]
-            if kind == "collide":
-                cols = (*collide_columns(torch, *cols[:2]), *cols[2:])
-            cols = sort.sort4(*cols)
+            for front, plain in fronts:
+                err = bits_err(torch, front, plain)
+                worst["front"] = max(worst["front"], err)
+                if err or len(front) != len(plain):
+                    raise AssertionError(f"the fused front end != plain at "
+                                         f"2^{log_n} {kind}")
+            if kind == "resident":
+                *cols, pos = fronts[0][0]
+            elif kind == "collide":
+                pos = args[0]
+                ch, sh, db, arrival = dedup.quantize_hash_reference(*args)
+                cols = sort.sort4(*collide_columns(torch, ch, sh), db,
+                                  arrival)
+            else:
+                pos, cols = args[0], fronts[0][0]
             b3 = mp.mark_pack(*cols, pos, *scalars)
             torch.cuda.synchronize()
             err = bits_err(torch, (b3,), (dedup.mark_pack_reference(
@@ -571,9 +642,10 @@ def pass_kernel_names(torch, fns, per_round: dict, reps: int = 10) -> dict:
 
 def check_pass_profile(torch, np, dedup, mp, sort, n: int) -> dict:
     """Rounds of one light pass and one resident pass on the card: their
-    device work must be B2, sort4's kernels and at most one B3 kernel a
-    pass, nothing else (no copy, no memset, no scan); then B3 alone: its
-    one kernel and nothing else."""
+    device work must be the fused front end (B2 inside sort4's tile
+    kernel, ``quantize_tile``), sort4's merges and at most one B3 kernel a
+    pass, nothing else (no standalone B2, no copy, no memset, no scan);
+    then B3 alone: its one kernel and nothing else."""
     from point_cloud_tpu_torch.core.metadata import MetadataConfig
     from point_cloud_tpu_torch.models.synth import pass_case, resident_case
 
@@ -584,10 +656,8 @@ def check_pass_profile(torch, np, dedup, mp, sort, n: int) -> dict:
                            "cuda")
     res = [torch.from_numpy(a).cuda()
            for a in resident_case(n, seed=6)]
-    ours = ("quantize_hash_kernel", "sort4_tile", "sort4_merge",
-            "mark_pack_kernel")
-    per_pass = {"quantize_hash_kernel": 1, **sort4_kernels(n),
-                "mark_pack_kernel": 1}
+    ours = ("quantize_tile", "sort4_merge", "mark_pack_kernel")
+    per_pass = {**front_kernels(n), "mark_pack_kernel": 1}
     names = pass_kernel_names(torch, [
         lambda: dedup.dedup_pass_light(*args),
         lambda: dedup.dedup_pass_resident(*res, *args[2:])],
@@ -610,11 +680,12 @@ def check_pass_profile(torch, np, dedup, mp, sort, n: int) -> dict:
 
 
 def time_pass(torch, np, dedup, qh, mp, sort, n: int) -> dict:
-    """B2, B3, the light pass and its plain twin at ``n`` rows of the
-    LiDAR-like cloud at hierarchy 0: the kernels' own device time
-    (``device_kernel_ms``), CUDA event times of the wrappers and of the
-    plain versions on the card (plain, kernel, kernel, plain), and the
-    bounds from this input."""
+    """The fused front end, B3, the light pass and its plain twin at ``n``
+    rows of the LiDAR-like cloud at hierarchy 0: the kernels' own device
+    time (``device_kernel_ms``), CUDA event times of the wrappers and of
+    the plain versions on the card (plain, kernel, kernel, plain), and
+    the bounds from this input. Beside the fused front end, its tile
+    kernel alone, and ``sort4`` alone on its columns."""
     from point_cloud_tpu_torch.core.metadata import MetadataConfig
     from point_cloud_tpu_torch.models.synth import pass_case
 
@@ -623,24 +694,22 @@ def time_pass(torch, np, dedup, qh, mp, sort, n: int) -> dict:
     args = dedup.pass_args(*pass_case("synth", n, seed=1), cs,
                            config.sub_cell_size(cs), "cuda")
     pos, scalars = args[0], args[2:]
-    cols = sort.sort4(*qh.quantize_hash(*args))
+    cols = qh.quantize_sort4(*args)
     b3_moved, keyed = b3_bytes(torch, cols[0], cols[1])
-    sort_kernels = sort4_kernels(n)
 
     def plain_pass():
         return dedup.mark_pack_reference(
-            *sort.sort4(*dedup.quantize_hash_reference(*args)), pos,
-            *scalars)
+            *dedup.quantize_sort4_reference(*args), pos, *scalars)
 
     out = {}
     for name, fn, plain, kernels in (
-            ("b2", lambda: qh.quantize_hash(*args),
-             lambda: dedup.quantize_hash_reference(*args), PASS_KERNELS["b2"]),
+            ("front", lambda: qh.quantize_sort4(*args),
+             lambda: dedup.quantize_sort4_reference(*args), front_kernels(n)),
             ("b3", lambda: mp.mark_pack(*cols, pos, *scalars),
              lambda: dedup.mark_pack_reference(*cols, pos, *scalars),
              PASS_KERNELS["b3"]),
             ("light_pass", lambda: dedup.dedup_pass_light(*args), plain_pass,
-             {**PASS_KERNELS["b2"], **sort_kernels, **PASS_KERNELS["b3"]})):
+             {**front_kernels(n), **PASS_KERNELS["b3"]})):
         p1 = cuda_ms(plain)
         w1 = cuda_ms(fn)
         d = device_kernel_ms(torch, fn, kernels)
@@ -649,24 +718,27 @@ def time_pass(torch, np, dedup, qh, mp, sort, n: int) -> dict:
         out[name] = {"ms": d, "wrapper_ms": statistics.median([w1, w2]),
                      "plain_ms": statistics.median([p1, p2]),
                      "wrapper_ms_runs": [w1, w2], "plain_ms_runs": [p1, p2]}
-    out["b2"]["bound_ms"], out["b2"]["bound_by"] = pass_bound_ms(
-        B2_BYTES_PER_ROW * n, B2_OPS_PER_ROW * n)
     out["b3"]["bound_ms"], out["b3"]["bound_by"] = pass_bound_ms(
         b3_moved, B3_OPS_PER_ROW * n)
     out["b3"]["keyed_rows"] = keyed
-    out["light_pass"]["bound_ms"] = (out["b2"]["bound_ms"]
-                                     + sort4_bound_ms(n)[0]
-                                     + out["b3"]["bound_ms"])
+    front = out["front"]
+    front["bound_ms"], front["bound_by"] = pass_bound_ms(
+        FRONT_BYTES_PER_ROW * n, FRONT_OPS_PER_ROW * n)
+    front["sort4_bound_ms"] = sort4_bound_ms(n)[0]
+    front["tile_ms"] = device_kernel_ms(torch, lambda: qh.quantize_sort4(*args),
+                                        {"quantize_tile": 1})
+    out["light_pass"]["bound_ms"] = front["bound_ms"] + out["b3"]["bound_ms"]
     out["light_pass"]["sort4_ms"] = device_kernel_ms(
-        torch, lambda: sort.sort4(*cols), sort_kernels)
+        torch, lambda: sort.sort4(*cols), sort4_kernels(n))
     return out
 
 
 def phase_pass(torch, np, dedup, get_pipeline) -> dict:
     """Phase 3: the full pass (``conversion``) and the light pass on the
-    card against the CPU port; B2 and B3 against their plain versions on
-    every shape and length; a profile of the light and resident passes;
-    the kernels and the pass timed at PASS_TIMED_LOG_N."""
+    card against the CPU port; the fused front end and B3 against their
+    plain versions on every shape and length; the division helper; a
+    profile of the light and resident passes; the kernels and the pass
+    timed at PASS_TIMED_LOG_N."""
     from point_cloud_tpu_torch.core.metadata import MetadataConfig
     from point_cloud_tpu_torch.models.synth import (
         pass_case, resident_case, synth_cloud,
@@ -713,6 +785,7 @@ def phase_pass(torch, np, dedup, get_pipeline) -> dict:
         raise AssertionError("dedup_pass_resident: cuda != cpu")
 
     kernels = check_pass_kernels(torch, np, dedup, qh, mp, sort)
+    division = division_check(torch, qh)
     names = check_pass_profile(torch, np, dedup, mp, sort, 1 << 18)
     timed = {1 << log_n: time_pass(torch, np, dedup, qh, mp, sort, 1 << log_n)
              for log_n in PASS_TIMED_LOG_N}
@@ -725,6 +798,7 @@ def phase_pass(torch, np, dedup, get_pipeline) -> dict:
         "cpu_equal_shapes": [*PASS_FINITE, "resident"],
         "kernels_checked": kernels["checked"],
         "max_abs_err": kernels["max_abs_err"],
+        "division_check": division,
         "profiled_device_work": names,
         "timed": timed,
     }
@@ -771,32 +845,40 @@ def same_store(a: Path, b: Path, what: str) -> int:
     return len(fa)
 
 
-def sorted_lengths(run: dict, flag: str, checked_lengths) -> dict:
-    """The run's sort4 launches by length; fails if it launched none or
-    sorted a length that phase 2 did not check."""
-    if run["launches"]["sort4"] <= 0:
-        raise AssertionError(f"the {flag} run launched no sort4")
-    by_n = {int(n): c for n, c in run["launches_by_n"]["sort4"].items()}
-    unchecked = sorted(n for n in by_n if n not in checked_lengths)
-    if unchecked:
-        raise AssertionError(f"the {flag} run sorted lengths {unchecked} "
-                             "that phase 2 did not check")
+def sorted_lengths(run: dict, flag: str, checked: dict) -> dict:
+    """The run's sorts by length, ``sort4``'s and the fused front end's
+    (and the front end's gather calls among them); fails if it sorted
+    nothing, or a length that the phase checking that kernel did not
+    check (``checked``: lengths by kernel)."""
+    launches = run["launches"]
+    if launches["sort4"] + launches["quantize_sort4"] <= 0:
+        raise AssertionError(f"the {flag} run sorted nothing")
+    by_n = {k: {int(n): c for n, c in v.items()}
+            for k, v in run["launches_by_n"].items()}
+    for kernel in ("sort4", "quantize_sort4"):
+        unchecked = sorted(n for n in by_n[kernel]
+                           if n not in checked[kernel])
+        if unchecked:
+            raise AssertionError(f"the {flag} run sorted lengths {unchecked} "
+                                 f"through {kernel}, which no phase checked")
     return by_n
 
 
-def pass_launches(run: dict, flag: str) -> dict:
-    """The run's B2 and B3 launch counts; on the slice every pass is B2,
-    sort4, B3, so the three counts must agree."""
+def pass_launches(run: dict, flag: str, mesh: bool = False) -> dict:
+    """The run's front end, ``sort4`` and B3 launch counts: every pass is
+    the fused front end (B2 inside sort4's tile kernel), then B3, so those
+    two counts agree; a single-device run calls no ``sort4`` of its own,
+    a mesh run one for each front end (its routing and arrival sorts)."""
     launches = run["launches"]
-    if not launches["quantize_hash"] == launches["mark_pack"] \
-            == launches["sort4"] > 0:
-        raise AssertionError(f"the {flag} run's passes were not B2 -> sort4 "
-                             f"-> B3: {launches}")
-    return {"quantize_hash": launches["quantize_hash"],
-            "mark_pack": launches["mark_pack"]}
+    fused, sorts = launches["quantize_sort4"], launches["sort4"]
+    if not fused == launches["mark_pack"] > 0 \
+            or sorts != (fused if mesh else 0):
+        raise AssertionError(f"the {flag} run's passes were not the fused "
+                             f"front end -> B3: {launches}")
+    return {k: launches[k] for k in ("quantize_sort4", "sort4", "mark_pack")}
 
 
-def phase_slice(torch, np, checked_lengths, tmp: Path) -> dict:
+def phase_slice(torch, np, checked: dict, tmp: Path) -> dict:
     """Phase 4, in ``tmp``; the PLY and the three stores stay there (phase
     8 converts the PLY again and compares with the ``--native`` store)."""
     from point_cloud_tpu_torch.core.point import PointBatch
@@ -828,11 +910,10 @@ def phase_slice(torch, np, checked_lengths, tmp: Path) -> dict:
         "batch_size": BATCH, "store_files": files,
         "byte_identical": True,
         "sort4_launches": native_device["launches"]["sort4"],
-        "sort4_launches_by_n": sorted_lengths(
-            native_device, "--device-native", checked_lengths),
+        "launches_by_n": sorted_lengths(
+            native_device, "--device-native", checked),
         "device_sort4_launches": device["launches"]["sort4"],
-        "device_sort4_launches_by_n": sorted_lengths(
-            device, "--device", checked_lengths),
+        "device_launches_by_n": sorted_lengths(device, "--device", checked),
         "device_native_busy": busy,
         "pass_launches": pass_launches(native_device, "--device-native"),
         "device_pass_launches": pass_launches(device, "--device"),
@@ -2305,29 +2386,31 @@ MULTIHOST_WORKERS = 2
 
 
 class SortCapture:
-    """Wraps ``sort4`` where the owner-sharded pass calls it (stage A's
-    hash sort in ``ops.dedup``, the routing and stage-B sorts in
-    ``parallel.owner_cascade``) while installed: the first call at each
-    length keeps its input columns and outputs, held against the plain
-    version after the run. It counts nothing: ``sort4`` counts its own
-    launches."""
+    """Wraps a sorting function (``name``) where the owner-sharded pass
+    calls it while installed: ``sort4`` in ``parallel.owner_cascade`` (the
+    routing and arrival sorts), the fused front end ``quantize_sort4`` in
+    ``ops.dedup`` and ``parallel.owner_cascade`` (stage A's and stage B's
+    hash sorts). The first call at each length
+    keeps its inputs and outputs, held against the plain version after
+    the run. It counts nothing: the kernels count their own launches."""
 
-    def __init__(self, modules):
-        self.modules = modules
-        self.real = [m.sort4 for m in modules]
+    def __init__(self, modules, name: str = "sort4"):
+        self.modules, self.name = modules, name
+        self.real = [getattr(m, name) for m in modules]
         self.calls = {}
 
     def __enter__(self):
         for m, real in zip(self.modules, self.real):
-            m.sort4 = self._wrap(real)
+            setattr(m, self.name, self._wrap(real))
         return self
 
     def _wrap(self, real):
-        def wrap(*cols):
-            out = real(*cols)
-            n = cols[0].shape[0]
+        def wrap(*args, **kwargs):
+            out = real(*args, **kwargs)
+            n = args[0].shape[0]
             if n not in self.calls:
-                self.calls[n] = ([c.clone() for c in cols],
+                self.calls[n] = ([a.clone() if hasattr(a, "clone") else a
+                                  for a in args], dict(kwargs),
                                  [o.clone() for o in out])
             return out
 
@@ -2335,16 +2418,18 @@ class SortCapture:
 
     def __exit__(self, *exc):
         for m, real in zip(self.modules, self.real):
-            m.sort4 = real
+            setattr(m, self.name, real)
 
-    def check(self, sort) -> dict:
-        """{length: max abs error} of every captured call against
-        ``sort4_reference``; raises on any difference."""
+    def check(self, plain) -> dict:
+        """{length: max abs error of the bits} of every captured call
+        against ``plain`` on the same inputs; raises on any difference."""
+        import torch
+
         errs = {}
-        for n, (cols, out) in sorted(self.calls.items()):
-            errs[n] = max_abs_err(out, sort.sort4_reference(*cols))
+        for n, (args, kwargs, out) in sorted(self.calls.items()):
+            errs[n] = bits_err(torch, out, plain(*args, **kwargs))
             if errs[n]:
-                raise AssertionError(f"sort4 on the mesh path at n={n} "
+                raise AssertionError(f"{self.name} on the mesh path at n={n} "
                                      "differs from its plain version")
         return errs
 
@@ -2378,10 +2463,11 @@ class CallCount:
             setattr(module, name, real)
 
 
-def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
+def phase_mesh_convert(torch, np, tmp: Path, checked: dict) -> dict:
     """Phase 8a: the phase-4 PLY through MeshConverter on a four-shard mesh
-    of the one card, from zero launch counts (every sort4 length of the
-    run held against the plain version), the store byte-identical to
+    of the one card, from zero launch counts (every sort4 and front end
+    length of the run held against the plain version), the store
+    byte-identical to
     phase 4's ``--native`` one; ``--mesh 1`` through the CLI; a
     forced-spill pass against the host Converter; the owner-sharded pass
     timed alone at 2^20 rows and one profiled cascade level."""
@@ -2411,43 +2497,49 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
     # the main path's run: every count starts at 0 here
     sort.launches = 0
     sort.launches_by_n.clear()
-    quantize_hash.launches = mark_pack.launches = 0
-    capture = SortCapture((dedup, owner_cascade))
+    quantize_hash.launches = 0
+    quantize_hash.launches_by_n.clear()
+    quantize_hash.gather_launches_by_n.clear()
+    mark_pack.launches = 0
+    capture = SortCapture((owner_cascade,))
+    fronts = SortCapture((dedup, owner_cascade), "quantize_sort4")
     hashes = CallCount({dedup: ("_hash_sort",),
-                        owner_cascade: ("_hashes_for",)})
-    with capture, hashes, StageTimer() as timer:
+                        owner_cascade: ("quantize_sort4",)})
+    with capture, fronts, hashes, StageTimer() as timer:
         t0 = time.perf_counter()
         convert_from_paths([tmp / "cloud.ply"], tmp / "mesh4",
                            batch_size=BATCH, converter_factory=factory)
         mesh_s = time.perf_counter() - t0
     launches, by_n = sort.launches, dict(sort.launches_by_n)
-    b2, b3 = quantize_hash.launches, mark_pack.launches
-    if launches <= 0:
-        raise AssertionError("the mesh conversion launched no sort4")
-    # one B2 launch for every _hash_sort (stage A) and _hashes_for (stage
-    # B) call, and one B3 launch for each (its sorted rows' flags)
-    if b2 <= 0 or b2 != sum(hashes.calls.values()):
-        raise AssertionError(f"mesh B2 launches {b2} != hash calls "
-                             f"{hashes.calls}")
-    if b3 != b2:
-        raise AssertionError(f"mesh B3 launches {b3} != B2 launches {b2}")
+    fused, fused_by_n = quantize_hash.launches, dict(
+        quantize_hash.launches_by_n)
+    b3 = mark_pack.launches
+    # one fused front end for every hash sort (stage A's _hash_sort, stage
+    # B's quantize_sort4), one B3 launch for each (its sorted rows'
+    # flags), and as many sort4 calls (the routing and arrival sorts)
+    hash_sorts = hashes.calls["_hash_sort"] + hashes.calls["quantize_sort4"]
+    if not fused == hash_sorts == b3 == launches > 0 \
+            or not hashes.calls["_hash_sort"] == hashes.calls[
+                "quantize_sort4"]:
+        raise AssertionError(f"mesh launches: front end {fused}, B3 {b3}, "
+                             f"sort4 {launches}, hash sorts {hashes.calls}")
     files = same_store(tmp / "native", tmp / "mesh4", "4-shard mesh")
-    sort_err = capture.check(sort)
-    if set(by_n) != set(sort_err):
-        raise AssertionError(f"mesh sort lengths {sorted(by_n)} but checked "
-                             f"{sorted(sort_err)}")
-    sort_checked.update(by_n)
+    sort_err = capture.check(sort.sort4_reference)
+    front_err = fronts.check(dedup.quantize_sort4_reference)
+    if set(by_n) != set(sort_err) or set(fused_by_n) != set(front_err):
+        raise AssertionError(f"mesh sort lengths {sorted(by_n)} and "
+                             f"{sorted(fused_by_n)} but checked "
+                             f"{sorted(sort_err)} and {sorted(front_err)}")
+    checked["sort4"].update(by_n)
+    checked["quantize_sort4"].update(fused_by_n)
     sideband = {"sideband_spilled": made[0].sideband_spilled,
                 "sideband_suspect": made[0].sideband_suspect}
     stages = timer.report()
 
     cli = run_cli("--mesh 1", tmp / "cloud.ply", tmp / "mesh1")
     same_store(tmp / "native", tmp / "mesh1", "--mesh 1")
-    cli_by_n = sorted_lengths(cli, "--mesh 1", sort_checked)
-    if cli["launches"]["quantize_hash"] <= 0 or \
-            cli["launches"]["mark_pack"] != cli["launches"]["quantize_hash"]:
-        raise AssertionError(f"the --mesh 1 run's B2/B3 launches: "
-                             f"{cli['launches']}")
+    cli_by_n = sorted_lengths(cli, "--mesh 1", checked)
+    cli_launches = pass_launches(cli, "--mesh 1", mesh=True)
 
     rng = np.random.default_rng(5)
     spill = PointBatch(synth_cloud(SPILL_POINTS, seed=1),
@@ -2505,18 +2597,20 @@ def phase_mesh_convert(torch, np, tmp: Path, sort_checked: set) -> dict:
         "batch_size": BATCH, "store_files": files, "byte_identical": True,
         "mesh_s": mesh_s, "mesh_mpts_s": CLOUD_POINTS / mesh_s / 1e6,
         "sort4_launches": launches, "sort4_launches_by_n": by_n,
+        "front_launches_by_n": fused_by_n,
         "sort4_max_abs_err_by_n": sort_err,
-        "pass_launches": {"quantize_hash": b2, "mark_pack": b3},
+        "front_max_abs_err_by_n": front_err,
+        "pass_launches": {"quantize_sort4": fused, "sort4": launches,
+                          "mark_pack": b3},
         "hash_calls": hashes.calls,
         **sideband,
         "stages": {k: v for k, v in stages.items() if k.startswith("mesh")
                    or k in ("lsm_merge", "overflow_staging")},
         "mesh1_cli": {"convert_s": cli["convert_s"],
                       "sort4_launches": cli["launches"]["sort4"],
-                      "sort4_launches_by_n": cli_by_n,
-                      "pass_launches": {
-                          k: cli["launches"][k]
-                          for k in ("quantize_hash", "mark_pack")},
+                      "sort4_launches_by_n": cli_by_n["sort4"],
+                      "front_launches_by_n": cli_by_n["quantize_sort4"],
+                      "pass_launches": cli_launches,
                       "byte_identical": True},
         "forced_spill": {"points": SPILL_POINTS, "capacity": 1,
                          "sideband_spilled": spilled.sideband_spilled,
@@ -2661,7 +2755,7 @@ def point_multiset(np, store: Path):
     return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
 
 
-def phase_multihost(np, tmp: Path, sort_checked: set) -> dict:
+def phase_multihost(np, tmp: Path, checked: dict) -> dict:
     """Phase 8c: the phase-4 cloud as four PLY files, converted by two
     ``--multihost --device-native`` CLI workers on the card that meet on a
     gloo process group at a localhost coordinator; rank 0's merged store
@@ -2713,7 +2807,7 @@ def phase_multihost(np, tmp: Path, sort_checked: set) -> dict:
             raise RuntimeError(f"multihost worker failed ({p.returncode}):\n"
                                f"{se.read_text()[-4000:]}")
         runs.append(json.loads(so.read_text().strip().splitlines()[-1]))
-    by_rank = [sorted_lengths(r, f"multihost rank {i}", sort_checked)
+    by_rank = [sorted_lengths(r, f"multihost rank {i}", checked)
                for i, r in enumerate(runs)]
     single = run_cli("--device-native", files, tmp / "parts-device-native")
     merged, direct = (point_multiset(np, out),
@@ -2739,7 +2833,9 @@ def phase_multihost(np, tmp: Path, sort_checked: set) -> dict:
         "sort4_launches_by_rank": [r["launches"]["sort4"] for r in runs],
         "pass_launches_by_rank": [pass_launches(r, f"multihost rank {i}")
                                   for i, r in enumerate(runs)],
-        "sort4_launches_by_n_by_rank": by_rank,
+        "sort4_launches_by_n_by_rank": [r["sort4"] for r in by_rank],
+        "front_launches_by_n_by_rank": [r["quantize_sort4"]
+                                        for r in by_rank],
         "single_device_native_s": single["convert_s"],
         "phase_s": time.perf_counter() - t_phase,
     }
@@ -3114,42 +3210,46 @@ def footprints_alone(torch, np, smi: str) -> int:
     return 0
 
 
+# name: (key in phase 3's results, source, the reference code it
+# replaces); ``launches`` is the slice's --device-native run's
 PASS_KERNEL_SOURCES = {
-    "quantize_hash": ("point_cloud_tpu_torch/csrc/quantize_hash.cu",
-                      "point_cloud_tpu/ops/dedup.py:184-260"),
-    "mark_pack": ("point_cloud_tpu_torch/csrc/mark_pack.cu",
+    "quantize_sort4": ("front", "point_cloud_tpu_torch/csrc/quantize_hash.cu",
+                       "point_cloud_tpu/ops/sort_pallas.py:220"),
+    "mark_pack": ("b3", "point_cloud_tpu_torch/csrc/mark_pack.cu",
                   "point_cloud_tpu/ops/dedup.py:351-422"),
 }
 
 
-def pass_kernel_entry(name: str, key: str, passed: dict, sliced: dict,
-                      meshed: dict, multihost: dict) -> dict:
-    """The kernels line's entry of B2 or B3: launches on the slice
-    (``--device-native``, phase 4), times and bounds from phase 3 at
-    MAIN_LOG_N and by length, launches by path."""
+def pass_kernel_entry(name: str, passed: dict, sliced: dict, meshed: dict,
+                      multihost: dict) -> dict:
+    """The kernels line's entry of the fused front end or B3: times and
+    bounds from phase 3 at MAIN_LOG_N and by length, launches by path;
+    ``launches`` is the slice's ``--device-native`` run's (phase 4)."""
     main_n = 1 << MAIN_LOG_N
     timed = passed["timed"]
+    key, source, replaces = PASS_KERNEL_SOURCES[name]
+    main_path = "--device-native"
     t = timed[main_n][key]
-    source, replaces = PASS_KERNEL_SOURCES[name]
-    return {
+    by_path = {
+        "--device-native": sliced["pass_launches"][name],
+        "--device": sliced["device_pass_launches"][name],
+        "mesh": meshed["pass_launches"][name],
+        "--mesh 1": meshed["mesh1_cli"]["pass_launches"][name],
+        "multihost": [r[name] for r in multihost["pass_launches_by_rank"]],
+    }
+    entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sliced["pass_launches"][name],
+        "launches": by_path[main_path], "launches_path": main_path,
         "max_abs_err": passed["max_abs_err"][key],
         "ms": t["ms"], "wrapper_ms": t["wrapper_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "bound_memory": "HBM",
-        # no single PyTorch call quantizes and hashes, or marks, audits
-        # and packs the sorted rows
+        # no single PyTorch call quantizes, hashes and sorts, or marks,
+        # audits and packs the sorted rows
         "library_ms": None,
         "n": main_n,
-        "launches_by_path": {
-            "--device-native": sliced["pass_launches"][name],
-            "--device": sliced["device_pass_launches"][name],
-            "mesh": meshed["pass_launches"][name],
-            "--mesh 1": meshed["mesh1_cli"]["pass_launches"][name],
-            "multihost": [r[name] for r in multihost["pass_launches_by_rank"]],
-        },
+        "launches_by_path": by_path,
         "checked": len(passed["kernels_checked"]),
         "ms_by_n": {n: timed[n][key]["ms"] for n in timed},
         "wrapper_ms_by_n": {n: timed[n][key]["wrapper_ms"] for n in timed},
@@ -3158,6 +3258,25 @@ def pass_kernel_entry(name: str, key: str, passed: dict, sliced: dict,
         "unit": "one call on the LiDAR-like cloud's bucket, as the pass "
                 "calls it (one launch each, no memset)",
     }
+    if key == "front":
+        entry.update({
+            "also_replaces": "point_cloud_tpu/ops/dedup.py:184-260",
+            "unit": "one call on the LiDAR-like cloud's bucket: the tile "
+                    "kernel with B2 as its loader (quantize_tile), then "
+                    "sort4's merges; bound: 13 B read and 16 B written a row",
+            "division_check": passed["division_check"],
+            **{f"{k}_by_n": {n: timed[n][key][k] for n in timed} for k in (
+                "tile_ms", "sort4_bound_ms")},
+            # calls by sorted length on each slice path, and the gather
+            # mode's (resident cascade levels) among them
+            "launches_by_n_by_path": {
+                path: {"all": run["quantize_sort4"],
+                       "gather": run["quantize_sort4_gather"]}
+                for path, run in (("--device-native", sliced["launches_by_n"]),
+                                  ("--device",
+                                   sliced["device_launches_by_n"]))},
+        })
+    return entry
 
 
 def main(argv=None) -> int:
@@ -3208,16 +3327,19 @@ def main(argv=None) -> int:
     kernel = phase_kernel(torch, np, sort)
     passed = phase_pass(torch, np, dedup, get_pipeline)
     sort_checked = {1 << log_n for log_n in SORT_SIZES}
+    # lengths checked by kernel: sort4's in phase 2, the front end's in 3
+    checked = {"sort4": sort_checked,
+               "quantize_sort4": {1 << log_n for log_n in PASS_LOG_N}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        sliced = phase_slice(torch, np, sort_checked, tmp)
+        sliced = phase_slice(torch, np, checked, tmp)
         framed = phase_frame(torch, np, tmp / "device-native", tmp)
         served = phase_serve(torch, np, tmp / "device-native", tmp, smi,
                              framed["raster"]["sm_clock_mhz_under_load"])
         armed = phase_arms(torch, np, tmp / "device-native", sort_checked)
-        meshed = phase_mesh_convert(torch, np, tmp, sort_checked)
+        meshed = phase_mesh_convert(torch, np, tmp, checked)
         mesh_frame = phase_mesh_frame(torch, np, tmp / "device-native")
-        multihost = phase_multihost(np, tmp, sort_checked)
+        multihost = phase_multihost(np, tmp, checked)
         footprints = phase_footprints(torch, np, tmp / "device-native",
                                       sort_checked)
     pulled = sorted(m for m in sys.modules
@@ -3263,7 +3385,9 @@ def main(argv=None) -> int:
         "name": "sort4", "route": "cuda",
         "source": "point_cloud_tpu_torch/csrc/sort4.cu",
         "replaces": "point_cloud_tpu/ops/sort_pallas.py:220",
-        "launches": sliced["sort4_launches"],
+        # the slice sorts through the fused front end (its entry below);
+        # sort4 itself sorts the mesh's routing and arrival columns
+        "launches": meshed["sort4_launches"], "launches_path": "mesh",
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["sort_device_ms_by_n"][main_n],
         "wrapper_ms": statistics.median(kernel["sort_ms_by_n"][main_n]),
@@ -3278,9 +3402,9 @@ def main(argv=None) -> int:
         "n": main_n,
         "launches_by_path": {
             "--device-native": {"launches": sliced["sort4_launches"],
-                                "by_n": sliced["sort4_launches_by_n"]},
+                                "by_n": sliced["launches_by_n"]["sort4"]},
             "--device": {"launches": sliced["device_sort4_launches"],
-                         "by_n": sliced["device_sort4_launches_by_n"]},
+                         "by_n": sliced["device_launches_by_n"]["sort4"]},
             "arms": {"launches": arm_launches["sort4"],
                      "by_n": armed["result"]["sort4_launches_by_n"]},
             "mesh": {"launches": meshed["sort4_launches"],
@@ -3403,8 +3527,8 @@ def main(argv=None) -> int:
             "dense_ms_runs", "dense_wrapper_ms", "dense_plain_ms")},
         "unit": "one launch on the sorted frame's largest bucket; bound_ms "
                 "counts its rows up to the _NO_ID tail",
-    }, *(pass_kernel_entry(name, key, passed, sliced, meshed, multihost)
-         for name, key in (("quantize_hash", "b2"), ("mark_pack", "b3")))]})
+    }, *(pass_kernel_entry(name, passed, sliced, meshed, multihost)
+         for name in PASS_KERNEL_SOURCES)]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

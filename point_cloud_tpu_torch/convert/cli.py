@@ -129,8 +129,19 @@ def kernel_launches() -> dict:
     ``--profile`` JSON's ``launches``)."""
     from ..ops import mark_pack, quantize_hash, sort
 
-    return {"sort4": sort.launches, "quantize_hash": quantize_hash.launches,
+    return {"sort4": sort.launches, "quantize_sort4": quantize_hash.launches,
             "mark_pack": mark_pack.launches}
+
+
+def launches_by_n() -> dict:
+    """The sorts' launch counts by length in this process (the
+    ``--profile`` JSON's ``launches_by_n``): ``sort4``'s, the fused front
+    end's and, among those, its gather mode's."""
+    from ..ops import quantize_hash, sort
+
+    return {"sort4": sort.launches_by_n,
+            "quantize_sort4": quantize_hash.launches_by_n,
+            "quantize_sort4_gather": quantize_hash.gather_launches_by_n}
 
 
 def main(argv=None) -> int:
@@ -200,14 +211,12 @@ def main(argv=None) -> int:
                       converter_factory=factory, batch_size=batch_size,
                       cache_size=cache_size)
         if args.profile:
-            from ..ops import sort
-
             print(json.dumps({
                 "multihost_s": time.perf_counter() - t0,
                 "process_id": config.process_id,
                 "num_processes": config.num_processes,
                 "launches": kernel_launches(),
-                "launches_by_n": {"sort4": sort.launches_by_n},
+                "launches_by_n": launches_by_n(),
             }))
         return 0
     if not args.profile:
@@ -215,7 +224,6 @@ def main(argv=None) -> int:
                            cache_size=cache_size, converter_factory=factory)
         return 0
 
-    from ..ops import sort
     from ..utils.tracing import StageTimer
 
     with StageTimer() as timer:
@@ -230,7 +238,7 @@ def main(argv=None) -> int:
         "convert_s": seconds,
         "points": metadata.number_of_points,
         "launches": kernel_launches(),
-        "launches_by_n": {"sort4": sort.launches_by_n},
+        "launches_by_n": launches_by_n(),
         "stages": timer.report(),
     }))
     return 0

@@ -56,6 +56,8 @@
 // Arithmetic: the keys and the near-tie threshold are IEEE f32 with _rn
 // intrinsics in the torch twins' order (no fma); max|p| propagates NaN as
 // torch.amax does, and max(d, 0) keeps a NaN d as torch.clamp_min does.
+// The keys' divisors are hex_keys.cuh's Grid, built once a block in shared
+// memory (the divisions themselves equal __fdiv_rn bit for bit).
 //
 // What bounds it: bytes, 16 B a row of sorted columns read and 4 B written,
 // plus 12 B of position gathered through perm for each row that shares its
@@ -169,9 +171,9 @@ __device__ __forceinline__ bool or_ahead(const Bits& x, int p) {
 }
 
 // The true keys of a position: cell index, then hex slot.
-__device__ __forceinline__ void row_keys(const float* p, float cs, float rad,
+__device__ __forceinline__ void row_keys(const float* p, const pc_hex::Grid& g,
                                          int* key) {
-  const pc_hex::Keys k = pc_hex::hex_keys<false>(p[0], p[1], p[2], cs, rad);
+  const pc_hex::Keys k = pc_hex::hex_keys<false>(p[0], p[1], p[2], g);
   for (int c = 0; c < 3; ++c) {
     key[c] = k.cell[c];
     key[3 + c] = k.sub[c];
@@ -292,9 +294,12 @@ __global__ void __launch_bounds__(kTileRows / kRows, kRows) mark_pack_kernel(
   __shared__ unsigned s_f[kWords], s_m[kWords], s_l[kWords];
   __shared__ int s_tile;
   __shared__ long long s_fix[3];  // earlier rows [0], [1]; own rows below [2]
+  __shared__ pc_hex::Grid s_grid;  // the divisors, built once a block
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) s_tile = static_cast<int>(atomicAdd(counter, 1u) - base);
+  // warp 1 builds the divisors while thread 0 waits on the counter
+  if (tid == 32) s_grid = pc_hex::make_grid(__ldg(cell_size), __ldg(radius));
   __syncthreads();
   const int tile = s_tile;
   const long long begin = static_cast<long long>(tile) * kTileRows;
@@ -321,7 +326,6 @@ __global__ void __launch_bounds__(kTileRows / kRows, kRows) mark_pack_kernel(
     nc = __ldg(ch + begin + kTileRows);
     ns = __ldg(sh + begin + kTileRows);
   }
-  const float cs = __ldg(cell_size), rad = __ldg(radius);
 
   // the rows at i0 - 1 and i0 + kRows
   if (lane == 31) {
@@ -396,12 +400,12 @@ __global__ void __launch_bounds__(kTileRows / kRows, kRows) mark_pack_kernel(
     hpos[2] = __ldg(q + 2);
   }
   int last_key[6] = {0, 0, 0, 0, 0, 0}, prev_key[6];
-  if (keyed[kRows - 1]) row_keys(p[kRows - 1], cs, rad, last_key);
+  if (keyed[kRows - 1]) row_keys(p[kRows - 1], s_grid, last_key);
   if (lane == 31)
     for (int j = 0; j < 6; ++j) s_keys[warp][j] = last_key[j];
   for (int j = 0; j < 6; ++j)
     prev_key[j] = __shfl_up_sync(kFull, last_key[j], 1);
-  if (halo_keyed) row_keys(hpos, cs, rad, prev_key);
+  if (halo_keyed) row_keys(hpos, s_grid, prev_key);
   __syncthreads();
   if (lane == 0 && warp > 0)
     for (int j = 0; j < 6; ++j) prev_key[j] = s_keys[warp - 1][j];
@@ -414,7 +418,7 @@ __global__ void __launch_bounds__(kTileRows / kRows, kRows) mark_pack_kernel(
     if (k == kRows - 1) {
       for (int j = 0; j < 6; ++j) key[j] = last_key[j];
     } else if (keyed[k]) {
-      row_keys(p[k], cs, rad, key);
+      row_keys(p[k], s_grid, key);
     } else {
       for (int j = 0; j < 6; ++j) key[j] = prev_key[j];
     }

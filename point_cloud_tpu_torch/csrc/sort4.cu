@@ -24,6 +24,9 @@
 //   odd-even transposition network: no shared memory, no sync); then 8
 //   rounds of merge-path merges through shared memory double the sorted
 //   runs from 8 rows to 2048, two syncs a round (CUB's BlockMergeSort).
+//   Its body is sort_tile in sort4_tile.cuh, a template on the row
+//   loader: here it reads the four columns; quantize_hash.cu's
+//   quantize_tile computes them from positions (B2 fused into the tile).
 // - sort4_merge: one launch per pass merges the runs of width W = 2048,
 //   4096, ..., n/2 in pairs. Each block writes 2048 consecutive output
 //   rows. Two warps find the block's start and end in both runs by a
@@ -37,6 +40,7 @@
 // - Passes ping-pong between (o1..o4) and the caller's scratch (t1..t4);
 //   the tile sort picks its output by the parity of the pass count, so
 //   the last pass lands in (o1..o4). The kernels allocate nothing.
+//   merge_passes runs the passes for pc_sort4 and pc_quantize_sort4.
 //
 // Launches: 1 + log2(n / 2048): 8 at 2^18, 10 at 2^20, each reading and
 // writing 16 B per row (~336 MB in all at 2^20, held in the 50 MB L2 up
@@ -52,97 +56,15 @@
 
 #include <cuda_runtime.h>
 
+#include "sort4_tile.cuh"
+
+namespace pc_tile {
 namespace {
-
-// One block shape for both kernels, chosen by measurement (PERF.md, PR 2)
-constexpr int kThreads = 256;
-constexpr int kItems = 8;  // rows per thread
-constexpr int kRows = kThreads * kItems;
-
-using Key = ulonglong2;  // x = (k1, k2), y = (k3, k4), sign bits flipped
-
-__device__ __forceinline__ Key make_key(int a, int b, int c, int d) {
-  const unsigned s = 0x80000000u;
-  return make_ulonglong2(
-      (static_cast<unsigned long long>(static_cast<unsigned>(a) ^ s) << 32) |
-          (static_cast<unsigned>(b) ^ s),
-      (static_cast<unsigned long long>(static_cast<unsigned>(c) ^ s) << 32) |
-          (static_cast<unsigned>(d) ^ s));
-}
 
 __device__ __forceinline__ Key load_key(const int* c1, const int* c2,
                                         const int* c3, const int* c4,
                                         long long r) {
   return make_key(__ldg(c1 + r), __ldg(c2 + r), __ldg(c3 + r), __ldg(c4 + r));
-}
-
-__device__ __forceinline__ void store_key(int* o1, int* o2, int* o3, int* o4,
-                                          long long r, const Key& k) {
-  const unsigned s = 0x80000000u;
-  o1[r] = static_cast<int>(static_cast<unsigned>(k.x >> 32) ^ s);
-  o2[r] = static_cast<int>(static_cast<unsigned>(k.x) ^ s);
-  o3[r] = static_cast<int>(static_cast<unsigned>(k.y >> 32) ^ s);
-  o4[r] = static_cast<int>(static_cast<unsigned>(k.y) ^ s);
-}
-
-__device__ __forceinline__ bool key_less(const Key& p, const Key& q) {
-  return p.x < q.x || (p.x == q.x && p.y < q.y);
-}
-
-__device__ __forceinline__ int slot(int i) { return i + (i >> 3); }
-
-__device__ __forceinline__ void sort_registers(Key (&k)[kItems]) {
-#pragma unroll
-  for (int round = 0; round < kItems; ++round) {
-#pragma unroll
-    for (int i = round & 1; i + 1 < kItems; i += 2) {
-      if (key_less(k[i + 1], k[i])) {
-        const Key t = k[i];
-        k[i] = k[i + 1];
-        k[i + 1] = t;
-      }
-    }
-  }
-}
-
-// Shared rows [a, a + a_len) and [b, b + b_len) are two sorted runs: how
-// many of the first `diag` rows of their merge come from the first.
-__device__ __forceinline__ int merge_path(const Key* s, int a, int a_len,
-                                          int b, int b_len, int diag) {
-  int lo = max(0, diag - b_len);
-  int hi = min(diag, a_len);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (key_less(s[slot(b + diag - 1 - mid)], s[slot(a + mid)]))
-      hi = mid;
-    else
-      lo = mid + 1;
-  }
-  return lo;
-}
-
-// The next kItems rows of the merge of shared runs [a, a_end) and
-// [b, b_end); ties take the first run. Reads stay inside the kRows rows.
-__device__ __forceinline__ void serial_merge(const Key* s, int a, int a_end,
-                                             int b, int b_end,
-                                             Key (&out)[kItems]) {
-  constexpr int last = kRows - 1;
-  Key ka = s[slot(min(a, last))];
-  Key kb = s[slot(min(b, last))];
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const bool take_b = b < b_end && (a >= a_end || key_less(kb, ka));
-    out[j] = take_b ? kb : ka;
-    if (take_b)
-      kb = s[slot(min(++b, last))];
-    else
-      ka = s[slot(min(++a, last))];
-  }
-}
-
-__device__ __forceinline__ void store_blocked(Key* s, const Key (&k)[kItems]) {
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) s[slot(threadIdx.x * kItems + j)] = k[j];
 }
 
 // How many of the first d rows of merge(A, B) come from A, where A is rows
@@ -170,51 +92,31 @@ __device__ long long warp_split(const int* c1, const int* c2, const int* c3,
   return lo;
 }
 
-// Sorts each run of kRows rows: (k1..k4) -> (o1..o4). With n below
-// kRows one block sorts `rows` = n rows; the rest of its tile holds
-// all-ones keys, which sort last and are not stored.
+// sort_tile's loader: a thread's keys from the four columns.
+struct ColumnLoader {
+  const int* c1;
+  const int* c2;
+  const int* c3;
+  const int* c4;
+  __device__ __forceinline__ void fill(Key (&k)[kItems], long long base,
+                                       int rows) const {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int i = j * kThreads + threadIdx.x;
+      k[j] = i < rows ? load_key(c1, c2, c3, c4, base + i)
+                      : make_ulonglong2(~0ull, ~0ull);
+    }
+  }
+};
+
+// Sorts each run of kRows rows: (k1..k4) -> (o1..o4) (sort_tile).
 __global__ void __launch_bounds__(kThreads)
     sort4_tile(const int* __restrict__ k1, const int* __restrict__ k2,
                const int* __restrict__ k3, const int* __restrict__ k4,
                int* __restrict__ o1, int* __restrict__ o2,
                int* __restrict__ o3, int* __restrict__ o4, int rows) {
-  __shared__ Key s[kRows + kRows / 8];  // 36 KB
-  const long long base = static_cast<long long>(blockIdx.x) * kRows;
-  Key k[kItems];
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int i = j * kThreads + threadIdx.x;
-    k[j] = i < rows ? load_key(k1, k2, k3, k4, base + i)
-                    : make_ulonglong2(~0ull, ~0ull);
-  }
-#pragma unroll
-  for (int j = 0; j < kItems; ++j)
-    s[slot(j * kThreads + threadIdx.x)] = k[j];
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kItems; ++j)
-    k[j] = s[slot(threadIdx.x * kItems + j)];
-  sort_registers(k);
-  // each round merges pairs of sorted runs held by width / 2 threads each
-  for (int width = 2; width <= kThreads; width *= 2) {
-    __syncthreads();
-    store_blocked(s, k);
-    __syncthreads();
-    const int half = kItems * width / 2;
-    const int a = (threadIdx.x & ~(width - 1)) * kItems;
-    const int diag = (threadIdx.x & (width - 1)) * kItems;
-    const int from_a = merge_path(s, a, half, a + half, half, diag);
-    serial_merge(s, a + from_a, a + half, a + half + diag - from_a,
-                 a + 2 * half, k);
-  }
-  __syncthreads();
-  store_blocked(s, k);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int i = j * kThreads + threadIdx.x;
-    if (i < rows) store_key(o1, o2, o3, o4, base + i, s[slot(i)]);
-  }
+  __shared__ Key s[kShared];  // 36 KB
+  sort_tile(ColumnLoader{k1, k2, k3, k4}, s, o1, o2, o3, o4, rows);
 }
 
 // One merge pass: the sorted runs of width w in (i1..i4), merged in pairs,
@@ -264,6 +166,24 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+int merge_passes(long long n, int* const* out, int* const* tmp,
+                 cudaStream_t stream) {
+  int* const* dst = tile_output(n, out, tmp);
+  int* const* src = dst == out ? tmp : out;
+  for (long long w = kRows; w < n; w *= 2) {
+    int* const* t = src;
+    src = dst;
+    dst = t;
+    sort4_merge<<<static_cast<unsigned>(n / kRows), kThreads, 0, stream>>>(
+        src[0], src[1], src[2], src[3], dst[0], dst[1], dst[2], dst[3], w);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+}  // namespace pc_tile
+
 // Sort (k1..k4) into (o1..o4) on `stream`, with (t1..t4) as scratch of the
 // same length. Returns cudaGetLastError() after each launch (0 = all
 // launched); it does not synchronise.
@@ -271,30 +191,15 @@ extern "C" int pc_sort4(const int* k1, const int* k2, const int* k3,
                         const int* k4, int* o1, int* o2, int* o3, int* o4,
                         int* t1, int* t2, int* t3, int* t4, long long n,
                         void* stream_handle) {
-  if (n < 1024 || (n & (n - 1)) != 0 || n > (1LL << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
+  using namespace pc_tile;
+  if (!valid_length(n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  int passes = 0;
-  for (long long w = kRows; w < n; w *= 2) ++passes;
-  int* out[4] = {o1, o2, o3, o4};
-  int* tmp[4] = {t1, t2, t3, t4};
-  int** dst = passes % 2 ? tmp : out;
-  int** src = passes % 2 ? out : tmp;
-
-  const int rows = n < kRows ? static_cast<int>(n) : kRows;
-  const unsigned tiles = static_cast<unsigned>(n < kRows ? 1 : n / kRows);
-  sort4_tile<<<tiles, kThreads, 0, stream>>>(
-      k1, k2, k3, k4, dst[0], dst[1], dst[2], dst[3], rows);
-  cudaError_t err = cudaGetLastError();
+  int* const out[4] = {o1, o2, o3, o4};
+  int* const tmp[4] = {t1, t2, t3, t4};
+  int* const* dst = tile_output(n, out, tmp);
+  sort4_tile<<<tile_blocks(n), kThreads, 0, stream>>>(
+      k1, k2, k3, k4, dst[0], dst[1], dst[2], dst[3], tile_rows(n));
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (long long w = kRows; w < n; w *= 2) {
-    int** t = src;
-    src = dst;
-    dst = t;
-    sort4_merge<<<static_cast<unsigned>(n / kRows), kThreads, 0, stream>>>(
-        src[0], src[1], src[2], src[3], dst[0], dst[1], dst[2], dst[3], w);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
+  return merge_passes(n, out, tmp, stream);
 }

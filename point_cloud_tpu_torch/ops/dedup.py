@@ -3,19 +3,21 @@
 Counterpart of ``point_cloud_tpu/ops/dedup.py``: same inputs, same
 outputs bit for bit (the packed ``perm | winner<<30 | suspect<<29`` i32
 per row). The reference fuses the pass into one XLA program; on the card
-the port runs it as three hand-written kernels:
+the port runs it as hand-written kernels:
 
-1. B2, :func:`~point_cloud_tpu_torch.ops.quantize_hash.quantize_hash`
-   (``csrc/quantize_hash.cu``): quantize each point (``hex_keys``,
+1. B2 (``csrc/quantize_hash.cu``): quantize each point (``hex_keys``,
    dedup.py:184-225, with the arithmetic of the torch twins of
    ``core/hex.py``), hash the cell and slot keys (``_hash_cols`` /
    ``_mix``, dedup.py:168-181; i32 wraparound and arithmetic shifts) and
-   write the four sort columns with the padding sentinels (``_hash_sort``,
+   give the four sort columns with the padding sentinels (``_hash_sort``,
    dedup.py:228-260); in gather mode it first gathers a cascade level's
    rows from the device-resident buffer (dedup.py:428-452);
-2. sort (cell hash, slot hash, distance bits, arrival) with
+2. sort (cell hash, slot hash, distance bits, arrival): the sort of
    :func:`point_cloud_tpu_torch.ops.sort.sort4` (the reference's
-   ``dispatch_sort4``, dedup.py:116-144);
+   ``dispatch_sort4``, dedup.py:116-144). Steps 1 and 2 are one call,
+   :func:`~point_cloud_tpu_torch.ops.quantize_hash.quantize_sort4`
+   (or ``quantize_sort4_resident``): B2 is the load stage of the sort's
+   tile kernel, so the columns are never written unsorted;
 3. B3, :func:`~point_cloud_tpu_torch.ops.mark_pack.mark_pack`
    (``csrc/mark_pack.cu``): mark winners, audit hash collisions and float
    near-ties, spread each run's flags over the run and pack one i32 per
@@ -24,8 +26,10 @@ the port runs it as three hand-written kernels:
 The plain versions of B2 and B3 live here, beside the pass they were
 split from: :func:`quantize_hash_reference` (with :func:`hex_keys`,
 :func:`_hash_cols`, :func:`_mix`; :func:`resident_rows_reference` for the
-gather) and :func:`mark_pack_reference` (with :func:`_near_tie_mask` and
-the cumsum/cummax/cummin run fill). On the CPU the wrappers run them;
+gather), :func:`quantize_sort4_reference` and
+:func:`quantize_sort4_resident_reference` (those, then
+``sort4_reference``) and :func:`mark_pack_reference` (with
+:func:`_near_tie_mask` and the cumsum/cummax/cummin run fill). On the CPU the wrappers run them;
 on the card a wrapper launches its kernel or raises.
 
 Left out on purpose: the reference's degrade-to-bitonic machinery
@@ -63,8 +67,8 @@ from ..core.metadata import MetadataConfig
 from ..native import hex_keys_native
 from ..utils.tracing import stage
 from .mark_pack import mark_pack
-from .quantize_hash import quantize_hash, quantize_hash_resident
-from .sort import sort4
+from .quantize_hash import quantize_sort4, quantize_sort4_resident
+from .sort import sort4_reference
 
 _I32_MAX = 2**31 - 1
 
@@ -199,16 +203,36 @@ def resident_rows_reference(resident, src_packed, extras):
     return positions, valid
 
 
+def quantize_sort4_reference(positions, valid, cell_size, sub_cell_radius,
+                             keys=False):
+    """Plain version of the fused front end
+    (``ops.quantize_hash.quantize_sort4``): :func:`quantize_hash_reference`,
+    its four columns sorted by ``sort4_reference``, then the unsorted keys
+    when ``keys`` is set."""
+    out = quantize_hash_reference(positions, valid, cell_size,
+                                  sub_cell_radius, keys=keys)
+    return sort4_reference(*out[:4]) + out[4:]
+
+
+def quantize_sort4_resident_reference(resident, src_packed, extras,
+                                      cell_size, sub_cell_radius):
+    """Plain version of ``ops.quantize_hash.quantize_sort4_resident``: the
+    gathered rows' sorted columns, then the rows."""
+    positions, valid = resident_rows_reference(resident, src_packed, extras)
+    return quantize_sort4_reference(positions, valid, cell_size,
+                                     sub_cell_radius) + (positions,)
+
+
 def _hash_sort(positions, valid, cell_size, sub_cell_radius, keys=False):
-    """Keys -> hashes -> 4-column sort (dedup.py:228-260): B2, then sort4.
+    """Keys -> hashes -> 4-column sort (dedup.py:228-260): B2 and sort4 in
+    one call (``quantize_sort4``).
 
     Returns (ch_s, sh_s, db_s, perm, cell_idx, sub_idx, dist), the last
     three unsorted and only when ``keys`` is set (None otherwise).
     """
-    out = quantize_hash(positions, valid, cell_size, sub_cell_radius,
-                        keys=keys)
-    ch_s, sh_s, db_s, perm = sort4(*out[:4])
-    return (ch_s, sh_s, db_s, perm) + (out[4:] if keys else (None,) * 3)
+    out = quantize_sort4(positions, valid, cell_size, sub_cell_radius,
+                         keys=keys)
+    return out[:4] + (out[4:] if keys else (None,) * 3)
 
 
 def _first_of_run(ch_s, sh_s):
@@ -220,8 +244,9 @@ def _first_of_run(ch_s, sh_s):
 
 def dedup_pass(positions, valid, cell_size, sub_cell_radius, next_cell_size):
     """One dedup pass over a padded batch, all per-row outputs
-    (dedup.py:263-320): B2 with its keys, sort4, the sorted rows' keys
-    gathered in torch, and B3's winner and suspect bits.
+    (dedup.py:263-320): B2 with its keys and sort4 in one call, the
+    sorted rows' keys gathered in torch, and B3's winner and suspect
+    bits.
 
     Args: (N, 3) f32 positions, (N,) bool valid mask, and the f32 scalars
     cell size, hex slot radius and next hierarchy's cell size.
@@ -303,10 +328,10 @@ def mark_pack_reference(ch_s, sh_s, db_s, perm, positions, cell_size,
 
 def dedup_pass_light(positions, valid, cell_size, sub_cell_radius):
     """The pass as one packed i32 per row: ``perm | winner << 30 |
-    suspect << 29`` (``_dedup_light_body``, dedup.py:351-422): B2, sort4,
-    B3."""
-    cols = quantize_hash(positions, valid, cell_size, sub_cell_radius)
-    return mark_pack(*sort4(*cols), positions, cell_size, sub_cell_radius)
+    suspect << 29`` (``_dedup_light_body``, dedup.py:351-422): B2 fused
+    into sort4 (``quantize_sort4``), then B3."""
+    cols = quantize_sort4(positions, valid, cell_size, sub_cell_radius)
+    return mark_pack(*cols, positions, cell_size, sub_cell_radius)
 
 
 def dedup_pass_resident(resident, src_packed, extras, cell_size,
@@ -315,10 +340,11 @@ def dedup_pass_resident(resident, src_packed, extras, cell_size,
     (``_dedup_resident_body``, dedup.py:428-452): ``src_packed`` >= 0
     indexes ``resident`` (the batch's level-0 buffer), < 0 is ``~index``
     into ``extras``, and i32::MAX marks bucket padding. B2 in gather mode
-    (it also writes the gathered rows), sort4, B3."""
-    *cols, positions = quantize_hash_resident(
+    fused into sort4 (``quantize_sort4_resident``; it also writes the
+    gathered rows), then B3."""
+    *cols, positions = quantize_sort4_resident(
         resident, src_packed, extras, cell_size, sub_cell_radius)
-    return mark_pack(*sort4(*cols), positions, cell_size, sub_cell_radius)
+    return mark_pack(*cols, positions, cell_size, sub_cell_radius)
 
 
 def pass_args(positions: np.ndarray, valid: np.ndarray, cell_size,

@@ -151,8 +151,12 @@ def load_kernels():
             [ptr] * 12 + [i32] * 4 + [ptr, i64, i64, ptr])
         lib.pc_sorted_merge.restype = ctypes.c_int
         lib.pc_sorted_merge.argtypes = [ptr, i64, ptr, ptr, ptr, i64, ptr]
-        lib.pc_quantize_hash.restype = ctypes.c_int
-        lib.pc_quantize_hash.argtypes = [ptr] * 7 + [i64] + [ptr] * 9
+        lib.pc_quantize_sort4.restype = ctypes.c_int
+        lib.pc_quantize_sort4.argtypes = [ptr] * 7 + [i64] + [ptr] * 13
+        lib.pc_division_check.restype = ctypes.c_int
+        lib.pc_division_check.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
+        lib.pc_division_sweep.restype = ctypes.c_int
+        lib.pc_division_sweep.argtypes = [ctypes.c_uint] * 3 + [ptr] * 3
         lib.pc_mark_pack.restype = ctypes.c_int
         lib.pc_mark_pack.argtypes = ([ptr] * 7 + [i64, ptr, ptr, i64, ptr]
                                      + [ctypes.c_uint] * 2 + [ptr])

@@ -16,7 +16,9 @@ show). The dedup pass passes a unique fourth column, the arrival iota.
 
 ``launches`` counts the kernel's launches (one per :func:`sort4` call on
 the card), so a run can show that its main path went through the kernel;
-``launches_by_n`` splits that count by column length.
+``launches_by_n`` splits that count by column length. The fused front
+end of ``ops.quantize_hash``, whose tile kernel is this sort's with B2 as
+its loader, counts its own calls there.
 """
 
 from __future__ import annotations
@@ -41,6 +43,12 @@ def sort4_reference(k1, k2, k3, k4):
     return k1[perm], k2[perm], k3[perm], k4[perm]
 
 
+def check_length(n: int) -> None:
+    """The kernel's lengths: a power of two in [2^10, 2^30]."""
+    if n < 1024 or n & (n - 1) or n > 1 << 30:
+        raise ValueError(f"sort4 kernel needs a pow2 length in [2^10, 2^30], got {n}")
+
+
 def _check_kernel_args(cols) -> int:
     n = cols[0].shape[0]
     for c in cols:
@@ -50,8 +58,7 @@ def _check_kernel_args(cols) -> int:
             raise ValueError("sort4 takes contiguous columns")
         if c.device != cols[0].device:
             raise ValueError("sort4 columns must share one device")
-    if n < 1024 or n & (n - 1) or n > 1 << 30:
-        raise ValueError(f"sort4 kernel needs a pow2 length in [2^10, 2^30], got {n}")
+    check_length(n)
     return n
 
 

@@ -4,14 +4,15 @@ parallel/owner_cascade.py).
 After the shard-local dedup (stage A), every surviving candidate is
 routed to the shard that *owns* its hex slot by an ``all_to_all``, and
 each owner runs the global winner-of-winners sort over only its slots
-(stage B). Per shard and level the pass sorts four times through
-``sort4`` (the hand-written kernel on the card): stage A's hash sort, the
-routing sort, and stage B's arrival pre-sort and hash sort; the two hash
-sorts take their columns from B2 (``ops.quantize_hash``, one launch
-each), and B3 (``ops.mark_pack``, one launch each) marks and audits
-their sorted rows. Every sorted length is a power of two of at least
-1024: the batch pads to 1024·N·2^k rows (2^k·1024 a shard), and stage B
-pads to a pow2 bucket.
+(stage B). Per shard and level the pass sorts four times, each through a
+hand-written kernel on the card: the two hash sorts (stage A's and stage
+B's) through the fused front end ``quantize_sort4`` (B2 as the load
+stage of ``sort4``'s tile kernel, ``ops.quantize_hash``), the routing
+sort and stage B's arrival pre-sort through ``sort4``; B3
+(``ops.mark_pack``, one launch each) marks and audits the hash sorts'
+rows. Every sorted length is a power of two of at least 1024: the batch
+pads to 1024·N·2^k rows (2^k·1024 a shard), and stage B pads to a pow2
+bucket.
 
 Ownership is keyed by the slot hash, not the cell hash: a slot's winner
 must be decided by exactly one shard, and slot-keyed routing stays
@@ -41,7 +42,7 @@ import torch
 from ..core.hex import f32_scalar
 from ..ops import dedup as dedup_mod
 from ..ops.mark_pack import mark_pack
-from ..ops.quantize_hash import quantize_hash
+from ..ops.quantize_hash import quantize_sort4
 from ..ops.sort import sort4
 from .dedup import shard_rows, shard_slices
 from .mesh import Mesh, all_to_all
@@ -89,12 +90,6 @@ def _check_pack_limits(shard_size: int, n_pad: int) -> None:
             f"(max 2^28) / padded batch {n_pad} (max 2^29-2) — "
             "split the batch (lower --batch-size)"
         )
-
-
-def _hashes_for(positions, valid, cell_size, sub_cell_radius):
-    """(cell_hash, slot_hash, dist_bits) with padding sentinels applied
-    (owner_cascade.py:138-153): B2's first three columns."""
-    return quantize_hash(positions, valid, cell_size, sub_cell_radius)[:3]
 
 
 def _owner_stage_a(shard: int, positions, valid, cell_size,
@@ -181,10 +176,10 @@ def _owner_stage_b(shard: int, recv_pos, recv_arr, cell_size,
     valid_b2 = arr_s1 != _I32_MAX
     arr_b2 = torch.where(valid_b2, arr_s1, torch.full_like(arr_s1, -1))
 
-    ch_b, sh_b, dist_bits = _hashes_for(pos_b2, valid_b2, cell_size,
-                                        sub_cell_radius)
-    rank = _iota(n_b, dev)
-    ch_bs, sh_bs, db_bs, rank_s = sort4(ch_b, sh_b, dist_bits, rank)
+    # the hash sort (owner_cascade.py:138-153's padded hashes, sorted with
+    # the buffer rank, which is B2's arrival column)
+    ch_bs, sh_bs, db_bs, rank_s = quantize_sort4(pos_b2, valid_b2, cell_size,
+                                                 sub_cell_radius)
     arr_bs = arr_b2[rank_s.long()]
     packed, _, _ = _winner_and_suspect(
         ch_bs, sh_bs, db_bs, rank_s, pos_b2, cell_size, sub_cell_radius)

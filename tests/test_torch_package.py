@@ -185,8 +185,10 @@ def test_cli_native_matches_reference_cli(tmp_path, capsys):
                      *common]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["points"] == 6000 and summary["convert_s"] > 0
-    assert set(summary["launches"]) == {"sort4", "quantize_hash", "mark_pack"}
-    assert set(summary["launches_by_n"]) == {"sort4"}
+    assert set(summary["launches"]) == {"sort4", "quantize_sort4",
+                                        "mark_pack"}
+    assert set(summary["launches_by_n"]) == {"sort4", "quantize_sort4",
+                                             "quantize_sort4_gather"}
     assert isinstance(summary["stages"], dict)
     files = sorted(p.relative_to(tmp_path / "ref")
                    for p in (tmp_path / "ref").rglob("*") if p.is_file())

@@ -206,18 +206,24 @@ def test_owner_pass_packed_bit_equal(ref, n_devices, n, lo, hi, capacity):
 
 def test_owner_pass_sort_lengths(monkeypatch):
     """Four sorts a shard and level (stage A's hash sort, the routing
-    sort, stage B's two), every length a pow2 of at least 1024."""
+    sort, stage B's two; the two hash sorts through the fused front end
+    ``quantize_sort4``), every length a pow2 of at least 1024."""
     from point_cloud_tpu_torch.ops import dedup as tdedup
 
     seen = []
-    real = toc.sort4
+    real, real_front = toc.sort4, tdedup.quantize_sort4
 
     def spy(*cols):
         seen.append(cols[0].shape[0])
         return real(*cols)
 
+    def front_spy(positions, *args, **kwargs):
+        seen.append(positions.shape[0])
+        return real_front(positions, *args, **kwargs)
+
     monkeypatch.setattr(toc, "sort4", spy)
-    monkeypatch.setattr(tdedup, "sort4", spy)
+    monkeypatch.setattr(toc, "quantize_sort4", front_spy)
+    monkeypatch.setattr(tdedup, "quantize_sort4", front_spy)
     for n_devices in (1, 3, 8):
         seen.clear()
         pos = random_batch(3_000, seed=n_devices).positions
@@ -434,15 +440,17 @@ def cuda_device():
 @pytest.mark.cuda
 def test_owner_pass_on_card_equals_cpu(cuda_device):
     """Four shards on one card: the packed outputs equal the CPU mesh's,
-    and every shard launched sort4 four times."""
-    from point_cloud_tpu_torch.ops import sort
+    and every shard sorted four times: its two hash sorts through the
+    fused front end, its routing and arrival sorts through sort4."""
+    from point_cloud_tpu_torch.ops import quantize_hash, sort
 
     pos = random_batch(200_000, seed=47, lo=-300, hi=300).positions
     cs, sub = level_sizes()
-    before = sort.launches
+    before = (sort.launches, quantize_hash.launches)
     card = toc.OwnerShardedPass(tmesh.make_mesh(
         devices=[cuda_device] * 4))(pos, cs, sub)
-    assert sort.launches - before == 16
+    assert (sort.launches - before[0],
+            quantize_hash.launches - before[1]) == (8, 8)
     cpu = toc.OwnerShardedPass(cpu_mesh(4))(pos, cs, sub)
     np.testing.assert_array_equal(card["a_packed"], cpu["a_packed"])
     np.testing.assert_array_equal(card["b_packed"], cpu["b_packed"])

@@ -1,6 +1,8 @@
 """The conversion pass's two kernels, B2 (``ops/quantize_hash.py``,
-``csrc/quantize_hash.cu``) and B3 (``ops/mark_pack.py``,
-``csrc/mark_pack.cu``), and their plain versions in ``ops/dedup.py``.
+``csrc/quantize_hash.cu``: the load stage of the fused front end, whose
+own cases are in tests/test_torch_front_end.py) and B3
+(``ops/mark_pack.py``, ``csrc/mark_pack.cu``), and their plain versions
+in ``ops/dedup.py``.
 
 On the CPU (JAX on the CPU too, imported inside the tests):
 
@@ -33,10 +35,11 @@ On the CPU (JAX on the CPU too, imported inside the tests):
   ``dedup_pass`` take their flags from B3: equal to
   ``mark_pack_reference``'s bits on forced collisions and near-ties.
 
-The ``cuda`` cases (skipped without a card) hold each kernel bit-equal to
-its plain version on the card over the same shapes, non-finite ones too,
+The ``cuda`` cases (skipped without a card) hold B3 bit-equal to its
+plain version on the card over the same shapes, non-finite ones too,
 at 2^15-2^22 rows and on every ``run_case``, the light and resident
-passes equal to the CPU's, and one B2 and one B3 launch a pass; B3 over
+passes equal to the CPU's, and one fused front end (B2 inside the sort,
+``tests/test_torch_front_end.py``) and one B3 launch a pass; B3 over
 200 calls of mixed lengths queued back to back on one stream, and passes
 from three threads on two streams at once (as the pipelined converter
 runs them), each equal to its plain result: no state leaks from one call
@@ -55,6 +58,7 @@ from point_cloud_tpu_torch.models.synth import (
 from point_cloud_tpu_torch.ops import dedup as td
 from point_cloud_tpu_torch.ops import mark_pack as tmark
 from point_cloud_tpu_torch.ops import quantize_hash as tquant
+from point_cloud_tpu_torch.ops import sort as tsort
 from point_cloud_tpu_torch.ops.sort import sort4
 from point_cloud_tpu_torch.parallel import owner_cascade
 
@@ -282,11 +286,12 @@ def test_mark_pack_reference_matches_jax_resident(seed):
     assert np.array_equal(val, real)
     assert np.array_equal(pos[~real], np.broadcast_to(resident[0],
                                                       pos[~real].shape))
-    # and the wrapper's gather mode on the CPU is the plain version
-    out = tquant.quantize_hash_resident(
+    # and the front end's gather mode on the CPU is the plain version:
+    # B2's columns of the gathered rows, sorted, then the rows
+    out = tquant.quantize_sort4_resident(
         torch.from_numpy(resident), torch.from_numpy(src),
         torch.from_numpy(extras), *args[2:])
-    ref = td.quantize_hash_reference(positions, valid, *args[2:])
+    ref = sort4(*td.quantize_hash_reference(positions, valid, *args[2:]))
     assert all(torch.equal(a, b) for a, b in zip(out[:4], ref))
     assert torch.equal(out[4], positions)
 
@@ -321,11 +326,11 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     pos, valid = case("lattice", 1 << 12, seed=5)
     args = torch_args(pos, valid, 5)
     before = (tquant.launches, tmark.launches)
-    got = tquant.quantize_hash(*args, keys=True)
+    got = tquant.quantize_sort4(*args, keys=True)
     ref = td.quantize_hash_reference(*args, keys=True)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    sorted_cols = sort4(*got[:4])
-    packed = tmark.mark_pack(*sorted_cols, args[0], *args[2:])
+    sorted_cols = sort4(*ref[:4])
+    assert all(torch.equal(a, b) for a, b in zip(got, sorted_cols + ref[4:]))
+    packed = tmark.mark_pack(*got[:4], args[0], *args[2:])
     assert torch.equal(packed, td.mark_pack_reference(*sorted_cols, args[0],
                                                       *args[2:]))
     assert torch.equal(packed, td.dedup_pass_light(*args))
@@ -364,8 +369,10 @@ def _bad_quant(kind):
     "dtype_positions", "dtype_valid", "shape_positions", "shape_valid",
     "device", "device_valid", "contiguity", "scalar_dtype", "empty"])
 def test_quantize_hash_refuses(kind):
+    """B2's checks, which the fused front end makes before it runs (here
+    with its keys asked for)."""
     with pytest.raises(ValueError):
-        tquant.quantize_hash(*_bad_quant(kind))
+        tquant.quantize_sort4(*_bad_quant(kind), keys=True)
 
 
 @pytest.mark.parametrize("kind", ["dtype", "device", "contiguity", "shape"])
@@ -382,7 +389,7 @@ def test_quantize_hash_resident_refuses(kind):
         extras = extras[:, :2].contiguous()
     cs, scs = grid(3)
     with pytest.raises(ValueError):
-        tquant.quantize_hash_resident(resident, src, extras, cs, scs / 2)
+        tquant.quantize_sort4_resident(resident, src, extras, cs, scs / 2)
 
 
 @pytest.mark.parametrize("kind", ["dtype", "length", "shape", "device",
@@ -390,7 +397,7 @@ def test_quantize_hash_resident_refuses(kind):
                                   "positions_contiguity"])
 def test_mark_pack_refuses(kind):
     a = _quant_args()
-    cols = list(sort4(*tquant.quantize_hash(*a)))
+    cols = list(tquant.quantize_sort4(*a))
     pos = a[0]
     if kind == "dtype":
         cols[3] = cols[3].long()
@@ -565,48 +572,17 @@ CARD_LOG_N = list(range(15, 23))
 
 
 def card_columns(kind, log_n, device):
-    """The sorted columns B3 meets on the card: B2 and sort4, with the
-    collision transform for ``collide``; and the pass arguments."""
+    """The sorted columns B3 meets on the card: the fused front end's, or
+    for ``collide`` B2's plain columns with the collision transform,
+    sorted by sort4; and the pass arguments."""
     shape = "uniform" if kind == "collide" else kind
     pos, valid = case(shape, 1 << log_n, seed=log_n)
     args = torch_args(pos, valid, log_n % 8, device)
-    ch, sh, db, arrival = tquant.quantize_hash(*args)
-    if kind == "collide":
-        ch, sh = collide(ch, sh)
+    if kind != "collide":
+        return tquant.quantize_sort4(*args), args
+    ch, sh, db, arrival = td.quantize_hash_reference(*args)
+    ch, sh = collide(ch, sh)
     return sort4(ch, sh, db, arrival), args
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("log_n", CARD_LOG_N)
-def test_quantize_hash_kernel_matches_reference_on_card(cuda_device, kind,
-                                                        log_n):
-    pos, valid = case(kind, 1 << log_n, seed=log_n)
-    args = torch_args(pos, valid, log_n % 8, cuda_device)
-    before = tquant.launches
-    got = tquant.quantize_hash(*args, keys=True)
-    torch.cuda.synchronize()
-    assert tquant.launches == before + 1
-    ref = td.quantize_hash_reference(*args, keys=True)
-    for g, r in zip(got, ref):
-        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("log_n", CARD_LOG_N)
-def test_quantize_hash_resident_kernel_matches_reference_on_card(
-        cuda_device, log_n):
-    resident, src, extras = (torch.from_numpy(a).to(cuda_device)
-                             for a in resident_case(1 << log_n, seed=log_n))
-    cs, scs = grid(log_n % 8)
-    scalars = td.pass_args(np.zeros((1, 3), np.float32), np.ones(1, bool),
-                           cs, scs, cuda_device)[2:]
-    got = tquant.quantize_hash_resident(resident, src, extras, *scalars)
-    torch.cuda.synchronize()
-    positions, valid = td.resident_rows_reference(resident, src, extras)
-    ref = td.quantize_hash_reference(positions, valid, *scalars)
-    for g, r in zip(got, ref + (positions,)):
-        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -628,11 +604,12 @@ def test_mark_pack_kernel_matches_reference_on_card(cuda_device, kind, log_n):
 @pytest.mark.parametrize("kind", FINITE_KINDS)
 def test_light_pass_on_card_matches_cpu(cuda_device, kind):
     pos, valid = case(kind, 1 << 18, seed=7)
-    before = (tquant.launches, tmark.launches)
+    before = (tquant.launches, tsort.launches, tmark.launches)
     got = td.dedup_pass_light(*torch_args(pos, valid, 3, cuda_device))
     torch.cuda.synchronize()
-    assert (tquant.launches, tmark.launches) == (before[0] + 1,
-                                                  before[1] + 1)
+    # B2 runs inside the fused front end (quantize_sort4), then B3
+    assert (tquant.launches, tsort.launches, tmark.launches) == (
+        before[0] + 1, before[1], before[2] + 1)
     assert torch.equal(got.cpu(),
                        td.dedup_pass_light(*torch_args(pos, valid, 3)))
 

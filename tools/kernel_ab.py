@@ -4,7 +4,9 @@ CUDA card, in one process.
 Every source is built into a shared library of its own with nvcc and the
 flags of the port's ``ops/runtime.py`` (plus ``-shared``, and ``-Xptxas
 -v``, whose register lines it prints), all builds at once; each library
-must give its plain version's result bit for bit before it is timed.
+must give its plain version's result bit for bit before it is timed
+(each library's static SASS counts by kernel are printed too:
+instructions, MUFU, FCHK, CALL, FFMA, ..., from ``cuobjdump -sass``).
 Then the libraries are timed parent, the others, the others in reverse,
 parent, in this one process: device time a launch by ``torch.profiler``
 (``chip_smoke.device_kernel_ms``). One JSON line a list or kernel, with
@@ -54,9 +56,9 @@ bound so.
     python tools/kernel_ab.py frame --parent $P --footprint 5
 
 ``pass``: the conversion pass's mark/audit/pack kernel (B3,
-``mark_pack.cu`` with ``hex_keys.cuh``) on the columns ``sort4`` leaves
-from B2 (``quantize_hash``) on the card, as ``chip_smoke.py`` phase 3
-times it: the LiDAR-like cloud (``pass_case("synth")``, seed 1,
+``mark_pack.cu`` with ``hex_keys.cuh``) on the sorted columns of the
+fused front end (``quantize_sort4``) on the card, as ``chip_smoke.py``
+phase 3 times it: the LiDAR-like cloud (``pass_case("synth")``, seed 1,
 hierarchy 0) at 2^16, 2^18, 2^20 and 2^22 rows, ``uniform`` at 2^20
 (few rows share a hash pair: little to gather) and ``all_equal`` at
 2^20 (every row one run: the look-back's and the fix-up's worst case). Each
@@ -69,16 +71,39 @@ by its ``mark_pack_resolve`` kernel and bound with its own C signature.
 
     python tools/kernel_ab.py pass --parent $P
 
+``front``: the conversion pass's front end, B2 (``quantize_hash.cu``
+with ``hex_keys.cuh``) and ``sort4`` (``sort4.cu``, with
+``sort4_tile.cuh`` where the tree has it), each tree's pair built into
+one library. Each tree's ways to the sorted columns: where its source
+has the standalone B2 (``pc_quantize_hash``, as before the fusion), B2
+then its ``sort4`` (``unfused``; the parent's is ``parent``); where it
+has the fused front end, B2 as the load stage of ``sort4``'s tile
+kernel (``fused``, ``pc_quantize_sort4``). On the LiDAR-like cloud
+(``pass_case("synth")``, seed 1, hierarchy 0) and in gather mode
+(``resident_case``) at 2^15, 2^18 and 2^20 rows; each way's sorted
+columns (and gathered rows) must equal the plain version's before it is
+timed, then device time a call (``torch.profiler``, the kernels of each
+way summed) in the order of the ways and back, and CUDA event time,
+beside the byte bounds of the fused function (13 B read and 16 B
+written a row) and of the unfused pair (61 B), and the fused tile
+kernel's own time. Then B2 alone (trees that have it) and ``sort4``
+alone, in the same turns: ``sort4``'s tile kernel after its move into
+the header should not change.
+
+    python tools/kernel_ab.py front --parent $P
+
 ``--alt NAME=PATH`` adds another source (``merge``: a ``sorted_merge.cu``;
 ``frame``: a directory with ``cull.cu`` and ``splat.cu``; ``pass``: a
-directory with ``mark_pack.cu`` and ``hex_keys.cuh``) with this tree's C
-entry points, timed beside the others: a candidate change.
+directory with ``mark_pack.cu`` and ``hex_keys.cuh``; ``front``: one
+with ``quantize_hash.cu``, ``sort4.cu`` and their headers) with this
+tree's C entry points, timed beside the others: a candidate change.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import re
 import subprocess
 import sys
@@ -112,7 +137,38 @@ def build_all(sources: dict, out_dir: Path) -> dict:
                 if "registers" in ln]
         print(f"{name}: {' | '.join(regs)}", flush=True)
         libs[name] = ctypes.CDLL(str(path))
+        print(json.dumps({"library": name, "sass": sass_counts(path)}),
+              flush=True)
     return libs
+
+
+SASS_OPS = ("MUFU", "FCHK", "CALL", "FFMA", "FMUL", "FADD", "LDG", "STG",
+            "LDL", "STL")
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel: {"instructions": n, op: n for SASS_OPS}} of a built
+    library's SASS (``cuobjdump -sass``): static counts, every branch's
+    instructions once."""
+    from point_cloud_tpu_torch.ops.runtime import _nvcc
+
+    out = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
+                          str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(("instructions", *SASS_OPS), 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if name and m:
+            counts[name]["instructions"] += 1
+            if m.group(1) in SASS_OPS:
+                counts[name][m.group(1)] += 1
+    return counts
 
 
 def interleaved(names: list, time_one) -> dict:
@@ -487,7 +543,6 @@ def ab_pass(args, torch, np, cs, smi: str) -> None:
     from point_cloud_tpu_torch.models.synth import pass_case
     from point_cloud_tpu_torch.ops import dedup, quantize_hash
     from point_cloud_tpu_torch.ops import mark_pack as tmark
-    from point_cloud_tpu_torch.ops.sort import sort4
 
     dirs = {"parent": args.parent, "new": CSRC}
     dirs.update((name, Path(d)) for name, d in
@@ -507,7 +562,7 @@ def ab_pass(args, torch, np, cs, smi: str) -> None:
         pargs = dedup.pass_args(*pass_case(kind, n, seed=1), cell_size,
                                 config.sub_cell_size(cell_size), "cuda")
         pos, scalars = pargs[0], pargs[2:]
-        cols = sort4(*quantize_hash.quantize_hash(*pargs))
+        cols = quantize_hash.quantize_sort4(*pargs)
         want = dedup.mark_pack_reference(*cols, pos, *scalars)
         launches = {}
         for name in names:
@@ -546,6 +601,202 @@ def ab_pass(args, torch, np, cs, smi: str) -> None:
                  "equal_to_plain": True, "device": smi})
 
 
+# --- front: B2 and sort4, fused or not ------------------------------------
+
+FRONT_LOG_N = (15, 18, 20)
+# the standalone B2 of a tree before the fusion: its kernel, and the bytes
+# the unfused pair moves beyond the fused function (sort4 reads and
+# writes the four columns, 32 B a row)
+STANDALONE_B2 = {"quantize_hash_kernel": 1}
+UNFUSED_EXTRA_BYTES_PER_ROW = 32
+
+
+def bind_front(lib, fused: bool, standalone: bool) -> None:
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    if standalone:
+        lib.pc_quantize_hash.restype = ctypes.c_int
+        lib.pc_quantize_hash.argtypes = [ptr] * 7 + [i64] + [ptr] * 9
+    lib.pc_sort4.restype = ctypes.c_int
+    lib.pc_sort4.argtypes = [ptr] * 12 + [i64, ptr]
+    if fused:
+        lib.pc_quantize_sort4.restype = ctypes.c_int
+        lib.pc_quantize_sort4.argtypes = [ptr] * 7 + [i64] + [ptr] * 13
+
+
+def front_inputs(torch, np, dedup, mode: str, n: int) -> dict:
+    """The pass's inputs on the card: ``direct`` the LiDAR-like cloud,
+    ``gather`` a resident level; with the plain B2 columns, and the plain
+    sorted columns (and gathered rows) that every way must give."""
+    from point_cloud_tpu_torch.core.metadata import MetadataConfig
+    from point_cloud_tpu_torch.models.synth import pass_case, resident_case
+
+    config = MetadataConfig()
+    cell_size = config.cell_size(0)
+    sub_size = config.sub_cell_size(cell_size)
+    if mode == "direct":
+        pos, valid, *scalars = dedup.pass_args(
+            *pass_case("synth", n, seed=1), cell_size, sub_size, "cuda")
+        ptrs, keep = [pos.data_ptr(), valid.data_ptr(), None, None, None], (
+            pos, valid)
+        want = dedup.quantize_sort4_reference(pos, valid, *scalars)
+    else:
+        res, src, ext = (torch.from_numpy(a).cuda()
+                         for a in resident_case(n, seed=1))
+        scalars = dedup.pass_args(np.zeros((1, 3), np.float32),
+                                  np.ones(1, bool), cell_size, sub_size,
+                                  "cuda")[2:]
+        ptrs, keep = [None, None, src.data_ptr(), res.data_ptr(),
+                      ext.data_ptr()], (res, src, ext)
+        want = dedup.quantize_sort4_resident_reference(res, src, ext,
+                                                       *scalars)
+        pos, valid = dedup.resident_rows_reference(res, src, ext)
+    return {"ptrs": ptrs, "scalars": scalars, "keep": keep, "want": want,
+            "b2": torch.stack(dedup.quantize_hash_reference(
+                pos, valid, *scalars)).contiguous()}
+
+
+def front_launcher(torch, lib, inp: dict, n: int, way: str):
+    """A launch of one way to the sorted columns (``unfused``: B2, then
+    sort4 on its columns; ``fused``; ``b2``: B2 alone; ``sort4``: sort4
+    alone on the plain B2 columns), and a function that returns its
+    columns and gathered rows (None where the way gathers none)."""
+    out = torch.empty((4, n), dtype=torch.int32, device="cuda")
+    cols, scratch = torch.empty_like(out), torch.empty_like(out)
+    gather = inp["ptrs"][2] is not None and way != "sort4"
+    pos_out = (torch.empty((n, 3), dtype=torch.float32, device="cuda")
+               if gather else None)
+    pos_ptr = None if pos_out is None else pos_out.data_ptr()
+    cs, radius = (s.data_ptr() for s in inp["scalars"])
+    col_ptrs = [c.data_ptr() for c in cols]
+    out_ptrs = [c.data_ptr() for c in out] + [c.data_ptr() for c in scratch]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def b2():
+        return lib.pc_quantize_hash(*inp["ptrs"], cs, radius, n, *col_ptrs,
+                                    None, None, None, pos_ptr, stream())
+
+    def sort_cols(ptrs):
+        return lib.pc_sort4(*ptrs, *out_ptrs, n, stream())
+
+    def fused():
+        return lib.pc_quantize_sort4(*inp["ptrs"], cs, radius, n, *out_ptrs,
+                                     None, None, None, pos_ptr, stream())
+
+    calls = {"unfused": [b2, lambda: sort_cols(col_ptrs)], "fused": [fused],
+             "b2": [b2],
+             "sort4": [lambda: sort_cols([c.data_ptr()
+                                          for c in inp["b2"]])]}[way]
+
+    def launch():
+        for call in calls:
+            rc = call()
+            if rc != 0:
+                raise RuntimeError(f"{way}: cudaError {rc}")
+
+    return launch, lambda: (cols if way == "b2" else out, pos_out)
+
+
+def front_kernels(cs, way: str, n: int) -> dict:
+    return {"unfused": {**STANDALONE_B2, **cs.sort4_kernels(n)},
+            "fused": cs.front_kernels(n), "b2": STANDALONE_B2,
+            "sort4": cs.sort4_kernels(n)}[way]
+
+
+def device_ms_or_none(torch, cs, launcher, kernels: dict, reps: int):
+    """``device_kernel_ms`` of a launcher's launch, None where the
+    profiler kept too few of its kernels (it drops some late in a long
+    process; the event times beside it stand)."""
+    try:
+        return cs.device_kernel_ms(torch, launcher[0], kernels, reps=reps)
+    except AssertionError as exc:
+        print(f"no device time: {exc}", flush=True)
+        return None
+
+
+def ab_front(args, torch, np, cs, smi: str) -> None:
+    from point_cloud_tpu_torch.ops import dedup
+
+    dirs = {"parent": args.parent, "new": CSRC}
+    dirs.update((name, Path(d)) for name, d in
+                (alt.split("=", 1) for alt in args.alt))
+    libs = build_all({name: [d / "quantize_hash.cu", d / "sort4.cu"]
+                      for name, d in dirs.items()}, args.out)
+    text = {name: (d / "quantize_hash.cu").read_text()
+            for name, d in dirs.items()}
+    fused_tree = {name: "pc_quantize_sort4" in s for name, s in text.items()}
+    b2_tree = {name: "pc_quantize_hash(" in s for name, s in text.items()}
+    for name, lib in libs.items():
+        bind_front(lib, fused_tree[name], b2_tree[name])
+    for mode in ("direct", "gather"):
+        for log_n in FRONT_LOG_N:
+            n = 1 << log_n
+            inp = front_inputs(torch, np, dedup, mode, n)
+            ways = {}  # label: ((launch, result), kernels)
+            for name, lib in libs.items():
+                own = (("unfused",) if b2_tree[name] else ()) + (
+                    ("fused",) if fused_tree[name] else ())
+                for way in own:
+                    label = ("parent" if name == "parent" else
+                             way if name == "new" else f"{name}_{way}")
+                    ways[label] = (front_launcher(torch, lib, inp, n, way),
+                                   front_kernels(cs, way, n))
+                for way in (("b2", "sort4") if b2_tree[name]
+                            else ("sort4",)):
+                    ways[f"{way}_{name}"] = (
+                        front_launcher(torch, lib, inp, n, way),
+                        front_kernels(cs, way, n))
+            for label, ((launch, result), _) in ways.items():
+                want = inp["b2"] if label.startswith("b2_") else inp["want"]
+                for _ in range(2):  # run again: no state carried over
+                    launch()
+                    torch.cuda.synchronize()
+                    got, pos = result()
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(f"{label} != plain on {mode} "
+                                             f"2^{log_n}")
+                    if pos is not None and not torch.equal(pos,
+                                                           inp["want"][4]):
+                        raise AssertionError(f"{label}: gathered rows != "
+                                             f"plain on 2^{log_n}")
+            main = [k for k in ways if not k.startswith(("b2_", "sort4_"))]
+            ms = interleaved(main, lambda label: cs.device_kernel_ms(
+                torch, ways[label][0][0], ways[label][1], reps=args.reps))
+            event = interleaved(main, lambda label: cs.cuda_ms(
+                ways[label][0][0]))
+            alone = {}
+            for way in ("b2", "sort4"):
+                names = [k for k in ways if k.startswith(f"{way}_")]
+                if not names:
+                    continue
+                alone[way] = interleaved(names, lambda label: (
+                    device_ms_or_none(torch, cs, *ways[label], args.reps)))
+                alone[f"{way}_event"] = interleaved(names, lambda label: (
+                    cs.cuda_ms(ways[label][0][0])))
+            tile = {label: cs.device_kernel_ms(
+                torch, ways[label][0][0], {"quantize_tile": 1},
+                reps=args.reps) for label in main
+                if ways[label][1] == cs.front_kernels(n)}
+            mean = {k: sum(v) / len(v) for k, v in ms.items()}
+            # gather mode: a 4 B source and 12 B of row in, 12 B of row
+            # out, in place of 13 B of position and valid
+            fused_bytes = (cs.FRONT_GATHER_BYTES_PER_ROW if mode == "gather"
+                           else cs.FRONT_BYTES_PER_ROW)
+            cs.emit({"kernel": "front", "input": mode, "n": n,
+                     "order": main + main[::-1], "ms_runs": ms,
+                     "event_ms_runs": event, "fused_tile_ms": tile,
+                     "alone_ms_runs": alone,
+                     "fused_bound_ms": fused_bytes * n
+                     / cs.HBM_BYTES_PER_S * 1e3,
+                     "unfused_bound_ms": (fused_bytes
+                                          + UNFUSED_EXTRA_BYTES_PER_ROW)
+                     * n / cs.HBM_BYTES_PER_S * 1e3,
+                     "over_parent": {k: m / mean["parent"]
+                                     for k, m in mean.items()},
+                     "equal_to_plain": True, "device": smi})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="kernel", required=True)
@@ -559,7 +810,9 @@ def main(argv=None) -> int:
     frame = sub.add_parser("frame", help="K1 and K2, cull.cu and splat.cu")
     frame.add_argument("--footprint", type=int, default=5)
     pass_ = sub.add_parser("pass", help="B3, mark_pack.cu")
-    for p in (merge, frame, pass_):
+    front = sub.add_parser("front", help="B2 and sort4, fused or not: "
+                           "quantize_hash.cu and sort4.cu")
+    for p in (merge, frame, pass_, front):
         p.add_argument("--parent", required=True, type=Path,
                        help="a parent commit's csrc directory")
         p.add_argument("--alt", nargs="*", default=[],
@@ -584,7 +837,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     args.out.mkdir(parents=True, exist_ok=True)
-    run = {"merge": ab_merge, "frame": ab_frame, "pass": ab_pass}
+    run = {"merge": ab_merge, "frame": ab_frame, "pass": ab_pass,
+           "front": ab_front}
     run[args.kernel](args, torch, np, cs, smi)
     return 0
 
