@@ -59,12 +59,26 @@ use. Imports no JAX. Phases, one JSON line each:
    raster alone on three more rankings of the synthetic rows
    (``EDGE_BUCKETS``: every rung filled with two overflow rungs past
    their caps, no row at all, one 65-px splat on the frame's corner).
+   K5 (``class_rank``, the class ranking under ``compact_classes``,
+   ``compact_perm`` and ``budget_table``) is held bit-exact against its
+   plain version (``perm`` with its pad, ``counts``, ``offsets``,
+   ``dest``) on every ranking of the frame and of the synthetic and edge
+   buckets (:class:`RankCapture`), and on a sweep (:func:`rank_sweep`):
+   N = 2^10..2^22, 1000 and 3, C = 1, 2, 13, 130, 9000, rows of no class
+   and one class holding every row, caps 0, 1, N/3 and N; where the plain
+   version's (C+1) x N one-hot passes RANK_PLAIN_SLOTS, against a stable
+   ``torch.sort`` (:func:`rank_oracle`). K5 is timed on the largest
+   bucket (:func:`time_rank`: device time by kernel, events, the plain
+   version, the bound, and ``torch.sort(stable=True)`` plus
+   ``torch.bincount`` as ``library_ms``).
    5b renders the same frame with
    ``device="cpu"`` and requires the rgb and id planes identical and the
    depth equal by value. 5c zeroes the launch counts and runs
    ``render_orbit`` for 8 frames: ``render`` times, ``render_pipelined``
    steady time, points, buckets, launches per frame, and the device busy
-   share of one frame under ``torch.profiler``.
+   share of one frame under ``torch.profiler``, whose kernels must hold
+   K5's three and none of the torch ranking's (``RANK_FORBIDDEN``: cub's
+   scan, the scatter).
 6. serve: the same store behind the port's store server (``serve``, on the
    card, 640x480, in a thread), driven over HTTP from zero launch counts:
    the static files, four orbit poses and one fly pose, eight timed
@@ -83,7 +97,9 @@ use. Imports no JAX. Phases, one JSON line each:
    1280x720, 4 frames each from zero launch counts; steady frames equal
    within their groups, first frames equal to the CPU renderer's, and
    every bucket the sorted arms sort held through K3, ``sort4`` and K4
-   against their plain versions; K4 also on a dense list of 2^26 rows
+   against their plain versions, and every K5 call of every arm (the
+   budget arm's ``dest`` and capped calls too) against its plain version;
+   K4 also on a dense list of 2^26 rows
    with no ``_NO_ID`` tail (``dense_merge_list``), bit for bit, then
    timed there and on the largest bucket from a flushed L2.
 8. mesh, the multi-device path, on four logical shards of the one card
@@ -100,7 +116,8 @@ use. Imports no JAX. Phases, one JSON line each:
    owner-sharded pass timed alone at 2^20 rows with its device time by
    kernel, and one cascade level profiled. (b) The store at 1280x720 from
    phase 7's pose through ``MeshPointRenderer`` from zero K1 and K2
-   counts (one launch of each a shard and bucket): bit-equal to the
+   counts (one launch of each a shard and bucket, K5's capped ranking
+   too, each call held against its plain version): bit-equal to the
    single-device plain raster arm, to the same mesh on the CPU and to
    1- and 3-shard meshes; the default arm's capped rungs reported.
    (c) The cloud as four PLY files, converted by two ``--multihost
@@ -114,7 +131,9 @@ use. Imports no JAX. Phases, one JSON line each:
    counts: every bucket's K1 and K2 bit-exact against their plain
    versions, the frame equal to the CPU renderer's at 29 and 129, device
    ms a frame and K1's and K2's device time on the largest bucket against
-   their bounds at 29, 64 and 129; the multi-dispatch, budget, sorted and
+   their bounds at 29, 64 and 129 (K5 there too, at 31 to 129 classes),
+   every K5 call of the phase's frames against its plain version; the
+   multi-dispatch, budget, sorted and
    fusion arms at 64 and 129 (steady frames within phase 7's groups, the
    sorted arm's K3, sort4 and K4 bit-exact on every bucket, every K1 and
    K2 call of the multi-dispatch arm's last frame bit-exact, and at 129
@@ -138,7 +157,10 @@ and 16 B written a row, ``cull_classify`` as ``cull_bound_ms`` says and
 ``quantize_sort4`` (the fused front end) its 13 B read and 16 B of
 sorted columns written a row (with ``sort4_bound_ms`` beside it) and
 ``mark_pack`` (B3) what ``b3_bytes`` counts on the run's sorted columns,
-each against its operations at the card's f32 rate.
+``class_rank`` (K5) its rung column read and its 2N perm slots written
+(:func:`rank_bound_ms`), each against its operations at the card's f32
+rate. K5's ``launches_by_path`` counts it on the orbit, serve, window,
+arms, mesh and footprint frames, each more than 0.
 Every timed block starts on a card held busy for WARM_S seconds (an idle
 H100 clocks 840 of 1,980 MHz), and K1, K3 and K4 are timed from an L2
 flushed before each call, as a frame finds it. ``splat_raster``'s is
@@ -227,7 +249,7 @@ def cuda_ms(fn, reps: int = 7, setup=None) -> float:
     return statistics.median(times)
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
 # fragments a chunk of the checks' plain K2 expansions (the reference's
 # chunks hold 2^16: 8 rows of a 129-px window); the plane is a minimum,
 # so it does not depend on the chunking
@@ -251,9 +273,12 @@ def device_kernel_ms(torch, fn, per_call: dict, reps: int = 20) -> float:
     counted calls, and a mean over the kernels it kept is unbiased by the
     ones it dropped where a sum over ``reps`` is not. A profile whose
     recorded step kept fewer kernels of some name than half of what the
-    ``reps`` calls launch is taken again, up to PROFILE_TRIES profiles,
-    and raises after that. ``profile_spans`` keeps what each recorded
-    step saw."""
+    ``reps`` calls launch, or more than they launch (one more than 20 of
+    K5's scatter once on the H100: a kernel of the warm-up step counted
+    in the recorded one), is taken again, up to PROFILE_TRIES profiles,
+    and raises after that: a ``per_call`` that undercounts ``fn``'s
+    kernels shows in every profile. ``profile_spans`` keeps what each
+    recorded step saw."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     warm_clock(torch)
@@ -278,17 +303,12 @@ def device_kernel_ms(torch, fn, per_call: dict, reps: int = 20) -> float:
                         spans[name].append(e.time_range.elapsed_us())
         profile_spans.append({name: [len(spans[name]), reps * count]
                               for name, count in per_call.items()})
-        if any(len(spans[name]) > reps * count
-               for name, count in per_call.items()):
-            raise AssertionError(f"the recorded step holds more kernels of "
-                                 f"{per_call} than {reps} calls launch: "
-                                 f"{profile_spans[-1]}")
-        if all(2 * len(spans[name]) >= reps * count
+        if all(reps * count >= len(spans[name]) >= reps * count / 2
                for name, count in per_call.items()):
             return sum(statistics.fmean(spans[name]) * count
                        for name, count in per_call.items() if count) / 1e3
-    raise AssertionError(f"the profiler kept too few kernels of {per_call} "
-                         f"in {PROFILE_TRIES} profiles: "
+    raise AssertionError(f"the profiler kept too few or more than launched "
+                         f"of {per_call} in {PROFILE_TRIES} profiles: "
                          f"{profile_spans[-PROFILE_TRIES:]}")
 
 
@@ -1178,10 +1198,11 @@ def run_rungs(splat, fb, inp, raster):
         footprint=inp["footprint"], voronoi=inp["voronoi"], raster=raster)
 
 
-def time_kernel(torch, kernel_fn, plain_fn, name: str, plain_reps: int,
+def time_kernel(torch, kernel_fn, plain_fn, name, plain_reps: int,
                 setup=None) -> dict:
     """Plain, kernel, kernel, plain on one card, for a kernel that
-    ``kernel_fn`` launches once. ``ms``: its own device time a call
+    ``kernel_fn`` launches once (``name``; or a ``per_call`` map of
+    :func:`device_kernel_ms`). ``ms``: its own device time a call
     (:func:`device_kernel_ms`, twice); ``wrapper_ms``:
     CUDA events around the wrapper call between them; ``plain_ms``: CUDA
     events around the plain version, before and after. ``setup()`` runs
@@ -1189,10 +1210,11 @@ def time_kernel(torch, kernel_fn, plain_fn, name: str, plain_reps: int,
     def with_setup(fn):
         return fn if setup is None else lambda: (setup(), fn())
 
+    per_call = name if isinstance(name, dict) else {name: 1}
     p1 = cuda_ms(plain_fn, reps=plain_reps, setup=setup)
-    d1 = device_kernel_ms(torch, with_setup(kernel_fn), {name: 1})
+    d1 = device_kernel_ms(torch, with_setup(kernel_fn), per_call)
     wrapper = cuda_ms(kernel_fn, setup=setup)
-    d2 = device_kernel_ms(torch, with_setup(kernel_fn), {name: 1})
+    d2 = device_kernel_ms(torch, with_setup(kernel_fn), per_call)
     p2 = cuda_ms(plain_fn, reps=plain_reps, setup=setup)
     return {"ms": (d1 + d2) / 2, "ms_runs": [d1, d2], "wrapper_ms": wrapper,
             "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
@@ -1394,6 +1416,207 @@ def check_edge_bucket(torch, splat, inp: dict, name: str) -> dict:
             "raster_err": err}
 
 
+# --- K5, the class ranking --------------------------------------------------
+
+RANK_KERNELS = {"class_rank_hist": 1, "class_rank_scan": 1,
+                "class_rank_scatter": 1}
+RANK_SWEEP_N = tuple(1 << k for k in range(10, 23)) + (1000, 3)
+RANK_SWEEP_C = (1, 2, 13, 130, 9000)
+RANK_EDGE_C = (1, 13, 9000)
+# the plain version's (C+1) x N one-hot up to this many slots; past it the
+# checks hold K5 to a stable sort on the card (:func:`rank_oracle`)
+RANK_PLAIN_SLOTS = 1 << 28
+# integer operations a row: the class test, the group's popcount and the
+# counter update in the histogram; the same, the lane mask and the slot in
+# the scatter
+RANK_OPS_PER_ROW = 12
+# kernels the ranking's torch version launched in a frame (cub's scan and
+# the scatter): none but K5's own may show in the orbit frame's profile
+RANK_FORBIDDEN = ("DeviceScan", "tensor_kernel_scan", "scatter")
+
+
+def rank_oracle(torch, rung, n_classes: int, out_size=None,
+                with_dest: bool = False):
+    """(perm, counts, offsets, dest) of a stable class ranking by
+    ``torch.sort(stable=True)`` and ``torch.bincount``, independent of the
+    port's code: the check where the plain version's one-hot does not
+    fit. ``rung`` is a bool mask of one class where ``out_size`` is
+    given."""
+    n = rung.shape[0]
+    if rung.dtype == torch.bool:
+        cls = torch.where(rung, 0, 1)
+    else:
+        cls = torch.where((rung >= 0) & (rung < n_classes), rung.long(),
+                          n_classes)
+    order = torch.sort(cls, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(cls, minlength=n_classes + 1)[:n_classes].to(
+        torch.int32)
+    offsets = (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
+    kept = int(counts.sum())
+    size = 2 * n if out_size is None else out_size
+    perm = torch.zeros(size, dtype=torch.int32, device=rung.device)
+    take = min(kept, size)
+    perm[:take] = order[:take]
+    dest = None
+    if with_dest:
+        dest = torch.full((n,), size, dtype=torch.int32, device=rung.device)
+        dest[order[:kept].long()] = torch.arange(
+            kept, dtype=torch.int32, device=rung.device)
+    return perm, counts, offsets, dest
+
+
+def check_rank(torch, splat, rung, n_classes: int, out_size=None,
+               with_dest: bool = False) -> dict:
+    """K5 against its plain version on the card (past RANK_PLAIN_SLOTS,
+    against :func:`rank_oracle`): perm (pad included), counts, offsets and
+    dest bit for bit. Raises on a difference."""
+    n = rung.shape[0]
+    got = splat.class_rank(rung, n_classes, out_size, with_dest)
+    plain = (n_classes + 1) * n <= RANK_PLAIN_SLOTS
+    ref = (splat.class_rank_reference(rung, n_classes, out_size, with_dest)
+           if plain else rank_oracle(torch, rung, n_classes, out_size,
+                                     with_dest))
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, r in zip(("perm", "counts", "offsets", "dest"), got, ref):
+        if (g is None) != (r is None):
+            raise AssertionError(f"class_rank: {name} given by one side only")
+        if g is None:
+            continue
+        e = abs_err(torch, g, r) if g.numel() else 0.0
+        err = max(err, e)
+        if g.dtype != torch.int32 or not torch.equal(g, r):
+            raise AssertionError(
+                f"class_rank != {'plain' if plain else 'stable sort'} in "
+                f"{name} at n={n}, C={n_classes}, out_size={out_size}: max "
+                f"abs err {e}")
+    return {"n": n, "classes": n_classes, "out_size": out_size,
+            "dest": with_dest, "against": "plain" if plain else "sort",
+            "err": err}
+
+
+class RankCapture:
+    """Wraps K5's wrapper (``splat.class_rank``) while it is installed:
+    every call's arguments (the rung cloned) kept for :meth:`check`. The
+    checks' own launches are taken off ``splat.rank_launches`` again."""
+
+    def __init__(self, splat):
+        self.splat = splat
+        self.real = splat.class_rank
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real
+
+        def wrap(rung, n_classes, out_size=None, with_dest=False):
+            self.calls.append((rung.clone(), n_classes, out_size, with_dest))
+            return real(rung, n_classes, out_size, with_dest)
+
+        self.splat.class_rank = wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.splat.class_rank = self.real
+
+    def check(self, torch) -> dict:
+        """Every captured call through :func:`check_rank`, then forgotten:
+        calls, the class counts and caps seen, the largest error."""
+        held = self.splat.rank_launches
+        try:
+            checks = [check_rank(torch, self.splat, *c) for c in self.calls]
+        finally:
+            self.splat.rank_launches = held
+        self.calls.clear()
+        return {"calls": len(checks),
+                "classes": sorted({c["classes"] for c in checks}),
+                "capped": sum(c["out_size"] is not None for c in checks),
+                "with_dest": sum(c["dest"] for c in checks),
+                "max_rows": max((c["n"] for c in checks), default=0),
+                "max_abs_err": max((c["err"] for c in checks), default=0.0)}
+
+
+def rank_sweep(torch, splat) -> dict:
+    """K5 on random rungs at every N of RANK_SWEEP_N and C of RANK_SWEEP_C
+    (with dest), on rows of no class and on one class holding every row at
+    RANK_EDGE_C, and in cap mode (one class of a mask) at caps 0, 1, N/3
+    and N: every output against the plain version or the stable sort."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    checks = []
+    held = splat.rank_launches
+    for n in RANK_SWEEP_N:
+        for c in RANK_SWEEP_C:
+            rung = torch.randint(-1, c, (n,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            checks.append(check_rank(torch, splat, rung, c, with_dest=True))
+        for c in RANK_EDGE_C:
+            for fill in (-1, c - 1):
+                rung = torch.full((n,), fill, dtype=torch.int32,
+                                  device="cuda")
+                checks.append(check_rank(torch, splat, rung, c,
+                                         with_dest=True))
+        keep = torch.rand(n, generator=gen, device="cuda") < 0.6
+        for cap in sorted({0, 1, n // 3, n}):
+            checks.append(check_rank(torch, splat, keep, 1, out_size=cap))
+    splat.rank_launches = held
+    return {"cases": len(checks),
+            "against_sort": sum(c["against"] == "sort" for c in checks),
+            "n": list(RANK_SWEEP_N), "classes": list(RANK_SWEEP_C),
+            "edge_classes": list(RANK_EDGE_C),
+            "max_abs_err": max(c["err"] for c in checks)}
+
+
+def rank_bound_ms(n: int, n_classes: int, slots: int) -> tuple[float, str]:
+    """K5's bound as ``compact_classes`` calls it: the i32 rung column read
+    once, every perm slot, counts and offsets written once, at the HBM
+    rate; or RANK_OPS_PER_ROW a row at the card's rate, whichever is
+    larger."""
+    return pass_bound_ms(4 * n + 4 * slots + 8 * n_classes,
+                         RANK_OPS_PER_ROW * n)
+
+
+def time_rank(torch, splat, rung, n_classes: int) -> dict:
+    """K5 as ``compact_classes`` calls it, on a rung column K1 has just
+    written (a warm L2, as in the frame): plain, kernel, kernel, plain
+    (:func:`time_kernel`), each of its three kernels' device time
+    (:func:`device_kernel_ms` a name), the bound, the library's stable
+    ``torch.sort`` plus ``torch.bincount`` of the same classes (checked
+    equal to K5's perm and counts first), and the device time by kernel
+    of one call of the plain version (the torch ranking K5 replaced in
+    the frame)."""
+    def kernel_fn():
+        return splat.class_rank(rung, n_classes)
+
+    def plain_fn():
+        return splat.class_rank_reference(rung, n_classes)
+
+    held = splat.rank_launches
+    t = time_kernel(torch, kernel_fn, plain_fn, RANK_KERNELS, plain_reps=5)
+    plain_kernels = busy_share(torch, plain_fn, top=None)["top_device_ms"]
+    by_kernel = {name: device_kernel_ms(torch, kernel_fn, {name: 1})
+                 for name in RANK_KERNELS}
+    perm, counts, _, _ = kernel_fn()
+    splat.rank_launches = held
+    cls = torch.where((rung >= 0) & (rung < n_classes), rung.long(),
+                      n_classes)
+
+    def library():
+        return (torch.sort(cls, stable=True),
+                torch.bincount(cls, minlength=n_classes + 1))
+
+    (_, order), bins = library()
+    kept = int(counts.sum())
+    if not (torch.equal(order[:kept].to(torch.int32), perm[:kept])
+            and torch.equal(bins[:n_classes].to(torch.int32), counts)):
+        raise AssertionError("torch.sort + bincount != class_rank")
+    n = rung.shape[0]
+    bound, by = rank_bound_ms(n, n_classes, 2 * n)
+    return {**t, "n": n, "classes": n_classes, "kept": kept,
+            "ms_by_kernel": by_kernel, "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(library),
+            "plain_kernels_ms": plain_kernels}
+
+
 def busy_share(torch, fn, top: int | None = 8) -> dict:
     """Run ``fn`` once under torch.profiler: the device time of its
     kernels and copies over the host wall time of the call, and the
@@ -1466,18 +1689,26 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
         captured.append((framebuffer.packed.clone(), args, kw))
         return bucket_pass(framebuffer, *args, **kw)
 
+    ranks = RankCapture(splat)  # K5's calls of the frame and the buckets
     splat.render_bucket_pass = capture
     try:
-        rgb_gpu, depth_gpu, stats_gpu = viewer.render()
+        with ranks:
+            rgb_gpu, depth_gpu, stats_gpu = viewer.render()
     finally:
         splat.render_bucket_pass = bucket_pass
     if not captured:
         raise AssertionError("the frame rendered no bucket")
+    frame_ranks = ranks.check(torch)
+    if frame_ranks["calls"] != len(captured):
+        raise AssertionError(f"{frame_ranks['calls']} K5 calls for "
+                             f"{len(captured)} buckets")
     buckets = [check_bucket(torch, splat, kernel, *entry) for entry in captured]
     synth_args, synth_kw = synth_bucket(torch, np, {**captured[0][2],
                                                    "thresholds": captured[0][1][-1]})
     synth_fb = splat.make_framebuffer(FRAME_H, FRAME_W, "cuda").packed
-    synth = check_bucket(torch, splat, kernel, synth_fb, synth_args, synth_kw)
+    with ranks:
+        synth = check_bucket(torch, splat, kernel, synth_fb, synth_args,
+                             synth_kw)
     rungs = (tuple(synth_kw["sub_ks"]) + (synth_kw["footprint"],)
              + tuple(synth_kw["overflow_ks"]))
     n_synth = synth["n"]
@@ -1487,12 +1718,19 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
         if rows == 0 or (k in (33, 65) and rows <= cap):
             raise AssertionError(f"the synthetic bucket missed rung {k}: "
                                  f"{rows} rows, cap {cap}")
-    synth_inp = raster_inputs(splat, kernel, synth_fb, synth_args, synth_kw)
-    edges = [check_edge_bucket(torch, splat,
-                               edge_bucket(torch, splat, synth_inp, name), name)
-             for name in EDGE_BUCKETS]
+    with ranks:
+        synth_inp = raster_inputs(splat, kernel, synth_fb, synth_args,
+                                  synth_kw)
+        edge_inputs = [edge_bucket(torch, splat, synth_inp, name)
+                       for name in EDGE_BUCKETS]
+    edges = [check_edge_bucket(torch, splat, inp, name)
+             for inp, name in zip(edge_inputs, EDGE_BUCKETS)]
+    # K5 on the synthetic and edge buckets' rankings, then the sweep
+    rank_checks = {"frame": frame_ranks, "synthetic_and_edges":
+                   ranks.check(torch), "sweep": rank_sweep(torch, splat)}
     emit({"phase": "frame_kernels", "ok": True, "exact": True,
-          "buckets": buckets, "synthetic": synth, "edge_buckets": edges})
+          "buckets": buckets, "synthetic": synth, "edge_buckets": edges,
+          "class_rank": rank_checks})
 
     # 5b: the same frame on the CPU, through the plain versions
     t0 = time.perf_counter()
@@ -1532,6 +1770,8 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
         lambda: run_rungs(splat, fb_big, inp, splat.splat_raster_reference),
         "splat_raster_kernel", plain_reps=2,
         setup=lambda: fb_big.copy_(big[0]))
+    rank_t = time_rank(torch, splat, kernel.cull_classify(*cargs, **ckw)[6],
+                       len(inp["rungs"]))
     # the large windows' time: the synthetic bucket, each run from its own
     # plane
     fb_synth = synth_fb.clone()
@@ -1554,7 +1794,7 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
                     * -(-FRAME_W // kernel.PYRAMID_TILE))
 
     # 5c: the orbit, the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = 0
+    kernel.launches = splat.launches = splat.rank_launches = 0
     times = []
     render = viewer.render
 
@@ -1570,7 +1810,8 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     finally:
         viewer.render = render
     launches = {"cull_classify": kernel.launches,
-                "splat_raster": splat.launches}
+                "splat_raster": splat.launches,
+                "class_rank": splat.rank_launches}
     if len(paths) != ORBIT_FRAMES or min(launches.values()) <= 0:
         raise AssertionError(f"the orbit did not run its kernels: {launches}")
     if launches["splat_raster"] != launches["cull_classify"]:
@@ -1590,7 +1831,26 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
         done += viewer.render_pipelined() is not None
     done += viewer.render_flush() is not None
     pipelined_ms = (time.perf_counter() - t0) * 1e3 / done
-    profiled = busy_share(torch, render)
+    # one frame's profile: none of the torch ranking's kernels (cub's scan,
+    # the scatter), and K5's three (taken again, up to PROFILE_TRIES
+    # times, if the profiler dropped one of them)
+    for _ in range(PROFILE_TRIES):
+        profiled = busy_share(torch, render, top=None)
+        by_name = profiled["top_device_ms"]
+        forbidden = [k for k in by_name
+                     if any(f in k for f in RANK_FORBIDDEN)
+                     and not any(r in k for r in RANK_KERNELS)]
+        if forbidden:
+            raise AssertionError(f"the frame's profile holds {forbidden}")
+        rank_seen = {name: sum(ms for k, ms in by_name.items() if name in k)
+                     for name in RANK_KERNELS}
+        if all(rank_seen.values()):
+            break
+    else:
+        raise AssertionError(f"the frame's profile lacks K5: {rank_seen}")
+    profiled.update(top_device_ms=dict(list(by_name.items())[:8]),
+                    kernels_seen=len(by_name), class_rank_ms=rank_seen,
+                    kernel_names=sorted(by_name))
     profiled["host_cumulative_ms"] = host_profile(render)
     result = {
         "phase": "frame", "ok": True, "width": FRAME_W, "height": FRAME_H,
@@ -1612,6 +1872,7 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     instr_ms = raster_instr_bound_ms(tested, frags, sms, clock_mhz)
     return {
         "frame": result,
+        "rank": {**rank_t, "checks": rank_checks},
         "cull": {**cull_t, "n": n_big, "inside": inside,
                  "max_abs_err": max(b["cull_err"] for b in buckets + [synth]),
                  "bound_ms": cull_bound_ms(
@@ -1732,13 +1993,14 @@ def phase_window(torch, np, store: Path) -> dict:
         backend = StubBackend([[WindowEvent("key_down", key="w"),
                                 WindowEvent("key_down", key="v"),
                                 WindowEvent("key_up", key="v")]])
-        kernel.launches = splat.launches = 0
+        kernel.launches = splat.launches = splat.rank_launches = 0
         t0 = time.perf_counter()
         frames = WindowLoop(viewer, backend).run(max_frames=WINDOW_FRAMES)
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
         launches = {"cull_classify": kernel.launches,
-                    "splat_raster": splat.launches}
+                    "splat_raster": splat.launches,
+                    "class_rank": splat.rank_launches}
         moved = float(np.linalg.norm(
             np.array(viewer.camera.transform.translation) - start))
         voronoi = viewer.settings.voronoi
@@ -1779,7 +2041,7 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
 
     fp1 = KernelCapture(kernel, splat)
     # the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = 0
+    kernel.launches = splat.launches = splat.rank_launches = 0
     httpd = serve(store, host="127.0.0.1", port=0, convert_root=root)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -1865,12 +2127,13 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
                 raise AssertionError("the converter's pump did not end")
         convert_s = time.perf_counter() - t0
         launches = {"cull_classify": kernel.launches,
-                    "splat_raster": splat.launches}
+                    "splat_raster": splat.launches,
+                    "class_rank": splat.rank_launches}
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=60)
-    if launches["cull_classify"] <= 0 or (
+    if min(launches.values()) <= 0 or (
             launches["splat_raster"] != launches["cull_classify"]):
         raise AssertionError(f"the server did not run its kernels: {launches}")
     report = validate_store(root / "converted")
@@ -2203,21 +2466,25 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
 
     default, default_ms, default_r = run({})
     # the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = 0
+    kernel.launches = splat.launches = splat.rank_launches = 0
     splat.fragment_launches = splat.merge_launches = 0
     sort.launches = 0
     sort.launches_by_n.clear()
     runs = {}
     capture = SortedCapture(splat)
     sorted_launches = {}
+    ranks, rank_checks = RankCapture(splat), {}
     for name, arm in ARMS.items():
         if name not in SORTED_ARMS:
-            runs[name] = run(arm)
+            with ranks:
+                runs[name] = run(arm)
+            rank_checks[name] = ranks.check(torch)
             continue
         before = (len(capture.buckets), splat.fragment_launches,
                   sort.launches, splat.merge_launches)
-        with capture:
+        with capture, ranks:
             runs[name] = run(arm)
+        rank_checks[name] = ranks.check(torch)
         sorted_launches[name] = {
             "buckets_sorted": len(capture.buckets) - before[0],
             "emit_fragments": splat.fragment_launches - before[1],
@@ -2226,8 +2493,12 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
     torch.cuda.synchronize()
     launches = {"cull_classify": kernel.launches,
                 "splat_raster": splat.launches,
+                "class_rank": splat.rank_launches,
                 "emit_fragments": splat.fragment_launches,
                 "sorted_merge": splat.merge_launches, "sort4": sort.launches}
+    if not rank_checks["budget"]["with_dest"] or not any(
+            c["capped"] for c in rank_checks.values()):
+        raise AssertionError(f"the arms' K5 calls: {rank_checks}")
     arms_by_n = dict(sort.launches_by_n)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the arms did not run every kernel: {launches}")
@@ -2344,6 +2615,7 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
         "sorted_launches": sorted_launches, "sort4_launches_by_n": arms_by_n,
         "sorted_buckets": buckets, "default_overflows": overflow,
         "capped_rungs": capped, "groups_agree": agree,
+        "class_rank_checks": rank_checks,
         "cpu_s": cpu_s, "phase_s": time.perf_counter() - t_phase,
     }
     emit(result)
@@ -2358,6 +2630,7 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
     viewer.close()
     return {
         "result": result,
+        "rank_err": max(c["max_abs_err"] for c in rank_checks.values()),
         "emit": {**emit_t, "length": big_stats["length"],
                  "rows": big_stats["rows"], "tested": big_stats["tested"],
                  "bound_ms": e_bound, "bound_by": e_by},
@@ -2666,14 +2939,18 @@ def phase_mesh_frame(torch, np, store: Path) -> dict:
     single_r = PointRenderer(viewer.metadata, plain, device="cuda")
     single, single_ms = frames_of(single_r, MESH_FRAMES)
     # the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = 0
+    kernel.launches = splat.launches = splat.rank_launches = 0
     mesh_r = MeshPointRenderer(viewer.metadata,
                                make_mesh(devices=card * MESH_SHARDS),
                                settings=plain)
-    frames, mesh_ms = frames_of(mesh_r, MESH_FRAMES)
+    ranks = RankCapture(splat)
+    with ranks:
+        frames, mesh_ms = frames_of(mesh_r, MESH_FRAMES)
     torch.cuda.synchronize()
     launches = {"cull_classify": kernel.launches,
-                "splat_raster": splat.launches}
+                "splat_raster": splat.launches,
+                "class_rank": splat.rank_launches}
+    rank_check = ranks.check(torch)
     buckets = frames[0][3]["buckets"]
     expect = MESH_FRAMES * MESH_SHARDS * buckets
     if buckets <= 0 or set(launches.values()) != {expect}:
@@ -2712,7 +2989,7 @@ def phase_mesh_frame(torch, np, store: Path) -> dict:
         "shards": MESH_SHARDS, "frames": MESH_FRAMES, "buckets": buckets,
         "points_visible": frames[0][3]["points_visible"],
         "lit_pixels": int((frames[0][2] != int(splat._NO_ID)).sum()),
-        "launches": launches,
+        "launches": launches, "class_rank_check": rank_check,
         "equals_single_device_plain_arm": True, "equals_cpu_mesh": True,
         "equal_at_widths": widths,
         "matches": "the plain raster arm (compact_raster, megakernel and "
@@ -2926,23 +3203,26 @@ def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
     def counts() -> dict:
         return {"cull_classify": kernel.launches,
                 "splat_raster": splat.launches,
+                "class_rank": splat.rank_launches,
                 "emit_fragments": splat.fragment_launches,
                 "sorted_merge": splat.merge_launches, "sort4": sort.launches}
 
     # the main path's run: every count starts at 0 here, and only the
     # frames add to it (:func:`driven`), not the checks and timings
-    kernel.launches = splat.launches = 0
+    kernel.launches = splat.launches = splat.rank_launches = 0
     splat.fragment_launches = splat.merge_launches = 0
     sort.launches = 0
     sort.launches_by_n.clear()
     launches = dict.fromkeys(counts(), 0)
     by_n: dict = {}
+    ranks, rank_checks = RankCapture(splat), {}
 
     def driven(fn):
         """``fn()``, a frame of the main path; its launches added to the
-        phase's counts."""
+        phase's counts, its K5 calls kept for ``ranks.check``."""
         before, before_n = counts(), dict(sort.launches_by_n)
-        out = fn()
+        with ranks:
+            out = fn()
         for name, count in counts().items():
             launches[name] += count - before[name]
         for n, count in sort.launches_by_n.items():
@@ -2996,6 +3276,9 @@ def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
                 {"cull_classify_kernel": 1})
             inp = raster_inputs(splat, kernel, *big)
             fb_big = big[0].clone()
+            entry["k5"] = time_rank(
+                torch, splat, kernel.cull_classify(*cargs, **ckw)[6],
+                len(inp["rungs"]))
 
             def k2():
                 return run_rungs(splat, fb_big, inp, None)
@@ -3125,6 +3408,8 @@ def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
                                              f"steady frame != {lead}'s")
             entry.update(arm_frame_ms=arm_ms, capped_rungs=capped,
                          groups=groups)
+        # K5 on every ranking of this footprint's frames
+        rank_checks[fp] = entry["class_rank_check"] = ranks.check(torch)
         by_fp[fp] = entry
         wide_k2 = entry.get("multi_dispatch_wide_k2")
         print(f"footprint {fp}: {len(rungs)} rungs, "
@@ -3159,6 +3444,7 @@ def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
         raise AssertionError(f"mesh frame at footprint {FOOTPRINT_MESH_AT} "
                              "!= the single-device plain arm's")
     torch.cuda.synchronize()
+    rank_checks["mesh"] = ranks.check(torch)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the footprints did not run every kernel: "
                              f"{launches}")
@@ -3176,12 +3462,14 @@ def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
         "sorted_buckets": sorted_buckets,
         "mesh": {"footprint": FOOTPRINT_MESH_AT, "shards": MESH_SHARDS,
                  "frame_ms": mesh_ms,
-                 "equals_single_device_plain_arm": True},
+                 "equals_single_device_plain_arm": True,
+                 "class_rank_check": rank_checks["mesh"]},
         "phase_s": time.perf_counter() - t_phase,
     }
     emit(result)
     viewer.close()
     return {"result": result, "by_n": by_n,
+            "rank_err": max(c["max_abs_err"] for c in rank_checks.values()),
             "cull_err": max(b["cull_err"] for b in checked + call_checks),
             "raster_err": max(b["raster_err"]
                               for b in checked + call_checks)}
@@ -3369,8 +3657,11 @@ def main(argv=None) -> int:
                       "mesh": mesh_frame["launches"][name],
                       "footprints": fp_launches[name]}
                for name in frame_launches}
+    if min(by_path["class_rank"].values()) <= 0:
+        raise AssertionError(f"a path ran no K5: {by_path['class_rank']}")
     by_fp = footprints["result"]["footprints"]
     fp1 = served["footprint1"]
+    rank = framed["rank"]
     emit_k, merge_k = armed["emit"], armed["merge"]
     sort_ms_by_n = {n: statistics.median(t)
                     for n, t in kernel["sort_ms_by_n"].items()}
@@ -3527,6 +3818,40 @@ def main(argv=None) -> int:
             "dense_ms_runs", "dense_wrapper_ms", "dense_plain_ms")},
         "unit": "one launch on the sorted frame's largest bucket; bound_ms "
                 "counts its rows up to the _NO_ID tail",
+    }, {
+        "name": "class_rank", "route": "cuda",
+        "source": "point_cloud_tpu_torch/csrc/class_rank.cu",
+        "replaces": "point_cloud_tpu/render/splat.py:96-139",
+        "also_replaces": ["point_cloud_tpu/render/splat.py:62-94",
+                          "point_cloud_tpu/render/splat.py:791-835"],
+        "launches": frame_launches["class_rank"],
+        "max_abs_err": max(
+            rank["checks"]["frame"]["max_abs_err"],
+            rank["checks"]["synthetic_and_edges"]["max_abs_err"],
+            rank["checks"]["sweep"]["max_abs_err"], armed["rank_err"],
+            mesh_frame["class_rank_check"]["max_abs_err"],
+            footprints["rank_err"]),
+        "ms": rank["ms"], "wrapper_ms": rank["wrapper_ms"],
+        "plain_ms": rank["plain_ms"], "bound_ms": rank["bound_ms"],
+        "bound_by": rank["bound_by"], "bound_memory": "HBM",
+        # torch.sort(cls, stable=True) and torch.bincount(cls): the same
+        # permutation and counts (checked equal); the port never calls them
+        "library_ms": rank["library_ms"],
+        "timed_from": "a warm L2 (K1 has just written the rung column)",
+        "launches_by_path": by_path["class_rank"],
+        "n": rank["n"], "classes": rank["classes"], "kept": rank["kept"],
+        "ms_by_kernel": rank["ms_by_kernel"], "ms_runs": rank["ms_runs"],
+        "plain_ms_runs": rank["plain_ms_runs"],
+        "sweep": rank["checks"]["sweep"],
+        "plain_kernels_ms": rank["plain_kernels_ms"],
+        "unit": "one compact_classes call on the orbit frame's largest "
+                "bucket: three launches (histogram, scan, scatter); bound: "
+                "4 B read a row, 4 B written a perm slot (2N)",
+        # phase 9: the largest bucket's ranking at footprints 29, 64, 129
+        "footprints": {fp: {k: by_fp[fp]["k5"][k] for k in (
+            "n", "classes", "kept", "ms", "wrapper_ms", "plain_ms",
+            "bound_ms", "library_ms", "ms_by_kernel")}
+            for fp in FOOTPRINT_TIMED},
     }, *(pass_kernel_entry(name, passed, sliced, meshed, multihost)
          for name in PASS_KERNEL_SOURCES)]})
     emit({"ok": True, "device": {

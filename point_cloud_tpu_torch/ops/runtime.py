@@ -160,6 +160,11 @@ def load_kernels():
         lib.pc_mark_pack.restype = ctypes.c_int
         lib.pc_mark_pack.argtypes = ([ptr] * 7 + [i64, ptr, ptr, i64, ptr]
                                      + [ctypes.c_uint] * 2 + [ptr])
+        lib.pc_class_rank_scratch.restype = i64
+        lib.pc_class_rank_scratch.argtypes = [i64, i32]
+        lib.pc_class_rank.restype = ctypes.c_int
+        lib.pc_class_rank.argtypes = ([ptr, i32, i64, i32, ptr, i64]
+                                      + [ptr] * 4 + [i64, ptr])
         build_info.update(path=str(lib_path), seconds=seconds)
         _lib = lib
         return _lib

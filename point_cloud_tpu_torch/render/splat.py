@@ -8,8 +8,13 @@ smallest id, splat.py:262-298) in one comparison. The clear word is
 
 - :func:`compact_classes` ranks a bucket's kept points into exclusive
   window-rung regions of one permutation, with device-side counts and
-  offsets and no host sync (one flat ``cumsum``, a ``gather`` and a
-  ``scatter_``).
+  offsets and no host sync. It, :func:`compact_perm` and the budget arm's
+  :func:`budget_table` are K5, :func:`class_rank`: on a CUDA tensor the
+  hand-written ``csrc/class_rank.cu`` (a tile histogram, its scan and a
+  stable scatter, O(N + C)), on a CPU tensor the plain versions
+  (:func:`compact_classes_reference`: one flat ``cumsum`` over the
+  (C+1) x N one-hot, a ``gather`` and a ``scatter_``;
+  :func:`compact_perm_reference`).
 - :func:`splat_raster_segments` is K2, the raster of one bucket: every
   :class:`Segment` of :func:`bucket_segments` (a rung's region of
   ``perm`` through its own window, capped for an overflow rung, or the
@@ -46,8 +51,8 @@ smallest id, splat.py:262-298) in one comparison. The clear word is
 - :func:`resolve_framebuffer` and :func:`pack_frame` turn the plane into
   the frame the host reads.
 
-``launches``, ``fragment_launches`` and ``merge_launches`` count the
-launches of K2, K3 and K4.
+``launches``, ``fragment_launches``, ``merge_launches`` and
+``rank_launches`` count the calls of K2, K3, K4 and K5.
 """
 
 from __future__ import annotations
@@ -100,17 +105,21 @@ def compact_classes(rung, n_classes: int):
     (2N,) i32 ``perm`` whose region [offsets[c], offsets[c] + counts[c])
     holds class c's rows in row order, and the (C,) i32 ``counts`` and
     ``offsets``, all on the device: nothing here waits for the host. The
-    2N length is the reference's pad contract; unfilled slots hold row 0
-    and are never read.
+    2N length is the reference's pad contract; the slots past the last
+    class hold 0 and are never read.
 
-    One inclusive cumsum over the class-major (C+1, N) one-hot, read as
-    one flat vector, gives everything: at (c, i) it counts the rows of
-    classes before c plus class c's rows up to i, which is row i's
-    destination + 1; its value at the end of row c is offsets[c] +
-    counts[c]. A flat scan keeps the whole card busy. A first cut that
-    scanned along the 13 rows (one block a row) and scatter_add_-ed the
-    counts (every thread on 13 words) took ~1.5 ms and ~0.7 ms a 2^20-row
-    bucket (chip_smoke.py's profiled frame, H100 80GB HBM3, 700 W)."""
+    On a CUDA tensor it is K5 (:func:`class_rank`: a tile histogram, its
+    scan and a stable scatter, O(N + C)); on a CPU tensor its plain
+    version, :func:`compact_classes_reference`."""
+    perm, counts, offsets, _ = class_rank(rung, n_classes)
+    return perm, counts, offsets
+
+
+def compact_classes_reference(rung, n_classes: int):
+    """Plain version of :func:`compact_classes`: one inclusive cumsum over
+    the class-major (C+1, N) one-hot, read as one flat vector, gives each
+    row's slot (:func:`rank_classes`), and one scatter the permutation
+    (:func:`class_perm`). O((C+1) N) work."""
     dest, counts, offsets = rank_classes(rung, n_classes)
     return class_perm(dest), counts, offsets
 
@@ -126,9 +135,12 @@ def class_perm(dest):
 
 
 def rank_classes(rung, n_classes: int):
-    """(dest, counts, offsets) of :func:`compact_classes`: ``dest`` (N,)
-    i64 is each row's slot in ``perm`` (offsets[c] + its rank in class c,
-    in row order), 2N for a row of no class."""
+    """(dest, counts, offsets) of :func:`compact_classes_reference`:
+    ``dest`` (N,) i64 is each row's slot in ``perm`` (offsets[c] + its rank
+    in class c, in row order), 2N for a row of no class. At (c, i) the flat
+    cumsum counts the rows of classes before c plus class c's rows up to
+    i, which is row i's slot + 1; its value at the end of row c is
+    offsets[c] + counts[c]."""
     n = rung.shape[0]
     dev = rung.device
     cls = torch.where(rung >= 0, rung, n_classes).long()
@@ -150,7 +162,16 @@ def compact_perm(keep, out_size: int):
     the (out_size,) i32 ``perm``, whose first min(count, out_size) entries
     are the kept rows in row order (the other slots hold row 0), and the
     (1,) i32 ``count`` of kept rows, on the device. Kept rows past
-    ``out_size`` are dropped."""
+    ``out_size`` are dropped. K5 with one class and a cap on a CUDA tensor
+    (:func:`class_rank`), its plain version
+    :func:`compact_perm_reference` on a CPU tensor."""
+    perm, count, _, _ = class_rank(keep, 1, out_size=out_size)
+    return perm, count
+
+
+def compact_perm_reference(keep, out_size: int):
+    """Plain version of :func:`compact_perm`: a cumsum of ``keep`` ranks the
+    kept rows, a scatter places them."""
     n = keep.shape[0]
     dev = keep.device
     k = keep.to(torch.int32)
@@ -159,6 +180,90 @@ def compact_perm(keep, out_size: int):
     perm = torch.zeros(out_size + 1, dtype=torch.int32, device=dev)
     perm.scatter_(0, dest, torch.arange(n, dtype=torch.int32, device=dev))
     return perm[:out_size], k.sum(dtype=torch.int32).reshape(1)
+
+
+# --- K5, the class ranking ---------------------------------------------------
+
+rank_launches = 0  # K5
+MAX_RANK_ROWS = (1 << 30) - 1  # 2N slots must fit i32
+
+
+def _check_rank(rung, n_classes: int, out_size, with_dest: bool) -> None:
+    """Raise for a call :func:`class_rank` does not take: a ranking of
+    classes takes a 1-D i32 ``rung`` and C >= 1; a capped one (``out_size``
+    given) one class of a 1-D bool mask and no ``dest``."""
+    capped = out_size is not None
+    dtype = torch.bool if capped else torch.int32
+    if rung.dtype != dtype or rung.dim() != 1 or not rung.is_contiguous():
+        raise ValueError(f"class_rank takes a contiguous 1-D {dtype} "
+                         f"{'mask' if capped else 'rung'}; got {rung.dtype} "
+                         f"{tuple(rung.shape)}")
+    if n_classes < 1 or (capped and (n_classes != 1 or with_dest
+                                     or out_size < 0)):
+        raise ValueError(f"class_rank takes C >= 1, or one class, a cap >= 0 "
+                         f"and no dest; got C={n_classes}, out_size="
+                         f"{out_size}, with_dest={with_dest}")
+
+
+def class_rank_reference(rung, n_classes: int, out_size=None,
+                         with_dest: bool = False):
+    """Plain version of K5: (perm, counts, offsets, dest). Without
+    ``out_size``, :func:`compact_classes_reference`'s ranking and, when
+    ``with_dest``, :func:`rank_classes`' ``dest`` as i32 (2N for no
+    class); with it, :func:`compact_perm_reference` of the mask, offsets
+    [0] and no dest."""
+    if out_size is None:
+        dest, counts, offsets = rank_classes(rung, n_classes)
+        return (class_perm(dest), counts, offsets,
+                dest.to(torch.int32) if with_dest else None)
+    perm, count = compact_perm_reference(rung, out_size)
+    return perm, count, torch.zeros(1, dtype=torch.int32,
+                                    device=rung.device), None
+
+
+def class_rank(rung, n_classes: int, out_size=None, with_dest: bool = False):
+    """K5: a stable ranking of rows into classes, (perm, counts, offsets,
+    dest) on the device with no host sync. ``rung`` (N,) i32 holds a class
+    in [0, C) or -1: ``perm`` (2N,) holds class c's rows in row order at
+    [offsets[c], offsets[c] + counts[c]), 0 past the last class, and
+    ``dest`` (N,) i32, when ``with_dest``, each row's slot (2N for no
+    class). With ``out_size``, ``rung`` is a bool mask of one class:
+    ``perm`` has ``out_size`` slots, kept rows past them are dropped and
+    ``counts`` is the uncapped (1,) count. On a CUDA tensor three launches
+    of ``csrc/class_rank.cu`` (no fallback); on a CPU tensor the plain
+    version, :func:`class_rank_reference`."""
+    global rank_launches
+    _check_rank(rung, n_classes, out_size, with_dest)
+    dev = rung.device
+    if dev.type == "cpu":
+        return class_rank_reference(rung, n_classes, out_size, with_dest)
+    if dev.type != "cuda":
+        raise ValueError(f"class_rank runs on cuda or cpu, not {dev}")
+    n = rung.shape[0]
+    if not 1 <= n <= MAX_RANK_ROWS:
+        raise ValueError(f"class_rank kernel takes 1..2^30-1 rows, got {n}")
+    from ..ops.runtime import load_kernels
+
+    lib = load_kernels()
+    size = 2 * n if out_size is None else out_size
+    need = lib.pc_class_rank_scratch(n, n_classes)
+    perm = torch.empty(size, dtype=torch.int32, device=dev)
+    counts = torch.empty(n_classes, dtype=torch.int32, device=dev)
+    offsets = torch.empty(n_classes, dtype=torch.int32, device=dev)
+    dest = (torch.empty(n, dtype=torch.int32, device=dev) if with_dest
+            else None)
+    scratch = torch.empty(need, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pc_class_rank(
+            rung.data_ptr(), int(out_size is not None), n, n_classes,
+            perm.data_ptr(), size, counts.data_ptr(), offsets.data_ptr(),
+            None if dest is None else dest.data_ptr(), scratch.data_ptr(),
+            need, stream)
+    if rc != 0:
+        raise RuntimeError(f"pc_class_rank launch failed: cudaError {rc}")
+    rank_launches += 1
+    return perm, counts, offsets, dest
 
 
 def compact_rows(keep, view_pos, ndc, radius, point_id, out_size: int):
@@ -509,20 +614,23 @@ def budget_table(rung, rungs: tuple, fp_i: int, budgets: tuple,
     mask, whose rows, in row order, :func:`compact_perm` packs into
     ``out_size`` slots after the rungs' 2N ranking (one more entry of
     ``counts`` and ``offsets``), drawn through the footprint window. The
-    spill is a ranking of its own, not K2's capped tail. ``rung_counts``
+    spill is a ranking of its own, not K2's capped tail. Both rankings are
+    K5 on the card (:func:`class_rank`, the first with each row's slot,
+    from which the spill mask is elementwise torch). ``rung_counts``
     are the rungs' (R,) exclusive counts."""
     n = rung.shape[0]
     dev = rung.device
     n_rungs = len(rungs)
-    dest, rung_counts, offsets = rank_classes(rung, n_rungs)
+    rung_perm, rung_counts, offsets, dest = class_rank(rung, n_rungs,
+                                                       with_dest=True)
     cls = torch.where(rung >= 0, rung, n_rungs).long()
     # a row's rank in its rung, and the rung's budget (none: the bucket)
     limit = torch.tensor([n if b is None else b for b in budgets] + [n],
                          dtype=torch.int64, device=dev)
-    rank = dest - torch.cat([offsets, offsets[:1]]).long()[cls]
+    rank = dest.long() - torch.cat([offsets, offsets[:1]]).long()[cls]
     fp_mask = (cls == fp_i) | ((cls < n_rungs) & (rank >= limit[cls]))
     fp_perm, fp_count = compact_perm(fp_mask, out_size)
-    perm = torch.cat([class_perm(dest), fp_perm])
+    perm = torch.cat([rung_perm, fp_perm])
     counts = torch.cat([rung_counts, fp_count])
     offsets_all = torch.cat([offsets, torch.full(
         (1,), 2 * n, dtype=torch.int32, device=dev)])
