@@ -48,6 +48,7 @@ import torch
 from ..core.metadata import Metadata
 from ..ops.dedup import pad_to_bucket
 from ..ops.runtime import resolve_device
+from ..utils.tracing import count, stage
 from . import kernel, splat
 from .camera import Camera
 from .kernel import MAX_HIERARCHIES, build_loaded_cells_hash, lod_select
@@ -164,23 +165,27 @@ class PointRenderer:
         key = tuple((c[2], c[4]) for c in bucket_cells)
         hit = self._bucket_cache.get(key)
         if hit is not None:
+            count("render.bucket_hit")
             return hit
-        positions = np.concatenate([c[3].positions for c in bucket_cells])
-        colors = np.concatenate([c[3].colors for c in bucket_cells])
-        point_hier = np.concatenate(
-            [np.full(len(c[3]), c[2].hierarchy, np.int32)
-             for c in bucket_cells])
-        n_real = len(positions)
-        n = pad_to_bucket(max(n_real, 1), minimum=1 << 12)
-        if n != n_real:
-            positions = np.concatenate(
-                [positions, np.zeros((n - n_real, 3), np.float32)])
+        count("render.bucket_miss")
+        with stage("render.upload"):
+            positions = np.concatenate([c[3].positions for c in bucket_cells])
+            colors = np.concatenate([c[3].colors for c in bucket_cells])
             point_hier = np.concatenate(
-                [point_hier, np.zeros(n - n_real, np.int32)])
-        valid = np.zeros(n, bool)
-        valid[:n_real] = True
-        entry = (self._upload(positions.astype(np.float32, copy=False)),
-                 self._upload(point_hier), self._upload(valid), colors, n_real)
+                [np.full(len(c[3]), c[2].hierarchy, np.int32)
+                 for c in bucket_cells])
+            n_real = len(positions)
+            n = pad_to_bucket(max(n_real, 1), minimum=1 << 12)
+            if n != n_real:
+                positions = np.concatenate(
+                    [positions, np.zeros((n - n_real, 3), np.float32)])
+                point_hier = np.concatenate(
+                    [point_hier, np.zeros(n - n_real, np.int32)])
+            valid = np.zeros(n, bool)
+            valid[:n_real] = True
+            entry = (self._upload(positions.astype(np.float32, copy=False)),
+                     self._upload(point_hier), self._upload(valid), colors,
+                     n_real)
         _bounded_put(self._bucket_cache, key, entry, 64)
         return entry
 
@@ -298,12 +303,18 @@ class PointRenderer:
         s = self.settings
         check_ported(s)
         dev = self.device
-        loaded_table = streamer.loaded_cells_table()
-        table_key = loaded_table.tobytes()
+        # spans: the walks over every loaded cell (render.gather), each
+        # cache miss's host arrays and copies (render.upload), the queued
+        # device chain (render.dispatch)
+        with stage("render.gather"):
+            loaded_table = streamer.loaded_cells_table()
+            table_key = loaded_table.tobytes()
+            cells = self.gather_points(streamer, camera)
         if self._hash_cache is None or self._hash_cache[0] != table_key:
-            self._hash_cache = (
-                table_key,
-                self._upload(build_loaded_cells_hash(loaded_table)))
+            with stage("render.upload"):
+                self._hash_cache = (
+                    table_key,
+                    self._upload(build_loaded_cells_hash(loaded_table)))
         loaded_hash = self._hash_cache[1]
 
         far_distances = np.zeros(MAX_HIERARCHIES, np.float32)
@@ -330,7 +341,6 @@ class PointRenderer:
                     and s.raster_mode != "sorted")
         fused = use_mega and s.frame_fusion
 
-        cells = self.gather_points(streamer, camera)
         framebuffer = splat.make_framebuffer(s.height, s.width, dev)
         all_colors = [np.zeros((1, 4), np.uint8)]
         id_base = 1
@@ -351,39 +361,42 @@ class PointRenderer:
             n = pos_dev.shape[0]
             total_in += n_real
             bucket_key = tuple((c[2], c[4]) for c in bucket_cells)
-            lkey = (bucket_key, table_key)
-            hier_base = self._lod_cache.get(lkey)
-            if hier_base is None:
-                hier_base = lod_select(
-                    pos_dev, hier_dev, sizes_dev,
-                    max(int(self.metadata.hierarchies), 1), loaded_hash)
-                _bounded_put(self._lod_cache, lkey, hier_base, 64)
             ikey = (bucket_key, id_base)
             ids_dev = self._ids_cache.get(ikey)
             if ids_dev is None:
-                point_ids = np.zeros(n, np.int32)
-                point_ids[:n_real] = np.arange(
-                    id_base, id_base + n_real, dtype=np.int32)
-                ids_dev = self._upload(point_ids)
+                with stage("render.upload"):
+                    point_ids = np.zeros(n, np.int32)
+                    point_ids[:n_real] = np.arange(
+                        id_base, id_base + n_real, dtype=np.int32)
+                    ids_dev = self._upload(point_ids)
                 _bounded_put(self._ids_cache, ikey, ids_dev, 64)
-            rows = (pos_dev, hier_base, valid_dev, ids_dev)
-            if use_mega:
-                static = self._mega_static(bucket, n, subs, overs)
-                counts_vec = None  # the fused pass lands it in the pack
-                if fused:
-                    fused_args.append(rows)
-                    fused_static.append(static)
+            with stage("render.dispatch"):
+                lkey = (bucket_key, table_key)
+                hier_base = self._lod_cache.get(lkey)
+                if hier_base is None:
+                    hier_base = lod_select(
+                        pos_dev, hier_dev, sizes_dev,
+                        max(int(self.metadata.hierarchies), 1), loaded_hash)
+                    _bounded_put(self._lod_cache, lkey, hier_base, 64)
+                rows = (pos_dev, hier_base, valid_dev, ids_dev)
+                if use_mega:
+                    static = self._mega_static(bucket, n, subs, overs)
+                    counts_vec = None  # the fused pass lands it in the pack
+                    if fused:
+                        fused_args.append(rows)
+                        fused_static.append(static)
+                    else:
+                        framebuffer, counts_vec = self._bucket_pass(
+                            framebuffer, rows, static, consts, thresholds,
+                            use_occ, use_pyr)
+                    frame_vecs.append((bucket,
+                                       subs + (s.footprint,) + overs,
+                                       counts_vec, "excl"))
                 else:
-                    framebuffer, counts_vec = self._bucket_pass(
-                        framebuffer, rows, static, consts, thresholds,
-                        use_occ, use_pyr)
-                frame_vecs.append((bucket, subs + (s.footprint,) + overs,
-                                   counts_vec, "excl"))
-            else:
-                counts_vec = self._multi_dispatch(
-                    framebuffer, bucket, rows, consts, use_occ, use_pyr)
-                frame_vecs.append((bucket, self._ladder(), counts_vec,
-                                   "cum"))
+                    counts_vec = self._multi_dispatch(
+                        framebuffer, bucket, rows, consts, use_occ, use_pyr)
+                    frame_vecs.append((bucket, self._ladder(), counts_vec,
+                                       "cum"))
             all_colors.append(colors)
             frame_bucket_keys.append(bucket_key)
             id_base += n_real
@@ -392,12 +405,13 @@ class PointRenderer:
         ckey = tuple(frame_bucket_keys)
         color_dev = self._color_cache.get(ckey)
         if color_dev is None:
-            color_table = np.concatenate(all_colors)
-            padded = pad_to_bucket(len(color_table), minimum=1 << 10)
-            color_table = np.concatenate(
-                [color_table,
-                 np.zeros((padded - len(color_table), 4), np.uint8)])
-            color_dev = self._upload(color_table)
+            with stage("render.upload"):
+                color_table = np.concatenate(all_colors)
+                padded = pad_to_bucket(len(color_table), minimum=1 << 10)
+                color_table = np.concatenate(
+                    [color_table,
+                     np.zeros((padded - len(color_table), 4), np.uint8)])
+                color_dev = self._upload(color_table)
             _bounded_put(self._color_cache, ckey, color_dev, 16)
 
         vec_meta = [(b, ks, len(ks) + 1, kind) for b, ks, _, kind in frame_vecs]
@@ -408,45 +422,51 @@ class PointRenderer:
             # the packed tail cannot carry this frame's counts: the same
             # chains bucket by bucket, then the synchronous readback
             # (renderer.py:926-951)
-            for bi, (rows, static) in enumerate(zip(fused_args,
-                                                    fused_static)):
-                framebuffer, counts_vec = self._bucket_pass(
-                    framebuffer, rows, static, consts, thresholds, use_occ,
-                    use_pyr)
-                b, ks, _, kind = frame_vecs[bi]
-                frame_vecs[bi] = (b, ks, counts_vec, kind)
+            with stage("render.dispatch"):
+                for bi, (rows, static) in enumerate(zip(fused_args,
+                                                        fused_static)):
+                    framebuffer, counts_vec = self._bucket_pass(
+                        framebuffer, rows, static, consts, thresholds,
+                        use_occ, use_pyr)
+                    b, ks, _, kind = frame_vecs[bi]
+                    frame_vecs[bi] = (b, ks, counts_vec, kind)
             fused_args = []
         if total_counts <= splat.PACK_COUNTS:
-            if fused_args:
-                packed, framebuffer = splat.render_frame_pass(
-                    tuple(fused_args), *consts, s.size_by_distance,
-                    s.max_hierarchy, color_dev, thresholds,
-                    height=s.height, width=s.width, footprint=s.footprint,
-                    voronoi=s.voronoi, use_occlusion=use_occ,
-                    bucket_static=tuple(fused_static),
-                    with_depth=s.transfer_depth, chunked=s.chunked_raster,
-                    use_pyramid=use_pyr)
-            else:
-                counts = (torch.cat([v for _, _, v, _ in frame_vecs])
-                          if frame_vecs
-                          else torch.zeros(1, dtype=torch.int32, device=dev))
-                packed = splat.pack_frame(framebuffer, color_dev, counts,
-                                          s.height, s.width, s.transfer_depth)
+            with stage("render.dispatch"):
+                if fused_args:
+                    packed, framebuffer = splat.render_frame_pass(
+                        tuple(fused_args), *consts, s.size_by_distance,
+                        s.max_hierarchy, color_dev, thresholds,
+                        height=s.height, width=s.width,
+                        footprint=s.footprint, voronoi=s.voronoi,
+                        use_occlusion=use_occ,
+                        bucket_static=tuple(fused_static),
+                        with_depth=s.transfer_depth,
+                        chunked=s.chunked_raster, use_pyramid=use_pyr)
+                else:
+                    counts = (torch.cat([v for _, _, v, _ in frame_vecs])
+                              if frame_vecs
+                              else torch.zeros(1, dtype=torch.int32,
+                                               device=dev))
+                    packed = splat.pack_frame(framebuffer, color_dev, counts,
+                                              s.height, s.width,
+                                              s.transfer_depth)
+                readback = _start_readback(packed)
             self.framebuffer = framebuffer
             return {"vec_meta": vec_meta, "stats": stats, "height": s.height,
                     "width": s.width, "with_depth": s.transfer_depth,
-                    **_start_readback(packed)}
+                    **readback}
         # more counts than the packed tail holds: resolve and read back
         # synchronously (renderer.py:989-1005)
         self.framebuffer = framebuffer
-        rgb, depth = splat.resolve_framebuffer(framebuffer, color_dev,
-                                               s.height, s.width)
-        counts = torch.cat([v for _, _, v, _ in frame_vecs])
-        stats["points_visible"] = self._land_count_vecs(
-            vec_meta, counts.cpu().numpy())
-        return {"rgb": rgb.cpu().numpy(),
-                "depth": depth.cpu().numpy() if s.transfer_depth else None,
-                "stats": stats}
+        with stage("render.dispatch"):
+            rgb, depth = splat.resolve_framebuffer(framebuffer, color_dev,
+                                                   s.height, s.width)
+            flat = torch.cat([v for _, _, v, _ in frame_vecs]).cpu().numpy()
+            rgb = rgb.cpu().numpy()
+            depth = depth.cpu().numpy() if s.transfer_depth else None
+        stats["points_visible"] = self._land_count_vecs(vec_meta, flat)
+        return {"rgb": rgb, "depth": depth, "stats": stats}
 
     def _bucket_pass(self, framebuffer, rows, static, consts, thresholds,
                      use_occ: bool, use_pyr: bool):
@@ -590,8 +610,9 @@ class PointRenderer:
             return handle["rgb"], handle["depth"], handle["stats"]
         height, width = handle["height"], handle["width"]
         stats = handle["stats"]
-        if handle["event"] is not None:
-            handle["event"].synchronize()
+        with stage("render.wait"):
+            if handle["event"] is not None:
+                handle["event"].synchronize()
         buf = handle["host"].numpy()
         hw3 = height * width * 3
         rgb = buf[:hw3].reshape(height, width, 3).copy()

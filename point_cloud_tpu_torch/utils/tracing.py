@@ -1,7 +1,7 @@
-"""Tracing / profiling: per-stage wall timers.
+"""Tracing / profiling: per-stage wall timers, span intervals, counters.
 
-Copy of the reference's ``utils/tracing.py``; its ``device_trace`` (a
-``jax.profiler`` wrapper) runs on ``torch.profiler`` here.
+Copy of the reference's ``utils/tracing.py``, with intervals and counters
+added for the frame's spans.
 
 The reference's only observability is an FPS readout and a wall-time log
 (reference: bevy FrameTimeDiagnosticsPlugin read at
@@ -10,7 +10,10 @@ This subsystem goes further, as the TPU build needs real profiling:
 
 - :class:`StageTimer` — named-stage accumulation with ``with timer("x")``;
   active timers install per-context (contextvars), so library code calls
-  :func:`stage` unconditionally and pays nothing when no timer is active,
+  :func:`stage` and :func:`count` unconditionally and pays nothing when no
+  timer is active; a timer also keeps every span as
+  ``(name, t0, t1, thread id)`` on ``time.perf_counter()``, the clock a
+  device trace can be anchored to,
 - throughput helpers (Mpts/s given points processed).
 """
 
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 import time
 from collections import defaultdict
 
@@ -25,14 +29,19 @@ _current_timer: contextvars.ContextVar["StageTimer | None"] = (
     contextvars.ContextVar("pct_stage_timer", default=None)
 )
 _global_timer: "StageTimer | None" = None  # worker threads fall back here
+_OFF = contextlib.nullcontext()  # stateless, so one serves every call
 
 
 class StageTimer:
-    def __init__(self):
-        import threading
+    """Totals and call counts by stage name, counters by name, and every
+    span as ``(name, t0, t1, thread_id)`` in the order the spans ended.
+    Intervals stay in memory until the caller reads them."""
 
+    def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self.counters: dict[str, int] = defaultdict(int)
+        self.intervals: list[tuple[str, float, float, int]] = []
         self._token = None
         self._lock = threading.Lock()
 
@@ -42,10 +51,16 @@ class StageTimer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
             with self._lock:
-                self.totals[name] += dt
+                self.totals[name] += t1 - t0
                 self.counts[name] += 1
+                self.intervals.append((name, t0, t1, threading.get_ident()))
+
+    def add(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name``."""
+        with self._lock:
+            self.counters[name] += n
 
     # --- installation --------------------------------------------------------
 
@@ -65,6 +80,7 @@ class StageTimer:
     # --- reporting ------------------------------------------------------------
 
     def report(self) -> dict[str, dict[str, float]]:
+        """A row a stage; the counters stay in ``counters``."""
         return {
             name: {
                 "total_s": round(self.totals[name], 4),
@@ -83,6 +99,8 @@ class StageTimer:
                 f"{name:>24}: {row['total_s']:8.3f}s "
                 f"x{row['count']:<6} ({row['mean_ms']:.2f} ms avg)"
             )
+        for name in sorted(self.counters):
+            lines.append(f"{name:>24}: x{self.counters[name]}")
         if points is not None:
             total = sum(self.totals.values())
             if total > 0:
@@ -92,35 +110,15 @@ class StageTimer:
         return "\n".join(lines)
 
 
-@contextlib.contextmanager
 def stage(name: str):
     """Time a stage on the context's active timer (no-op without one)."""
     timer = _current_timer.get() or _global_timer
-    if timer is None:
-        yield
-    else:
-        with timer(name):
-            yield
+    return _OFF if timer is None else timer(name)
 
 
-@contextlib.contextmanager
-def device_trace(log_dir):
-    """Capture a device trace of the block into ``log_dir`` (created if
-    missing) as a Chrome trace file, ``trace_<pid>_<n>.json``, readable
-    by Perfetto or chrome://tracing: the CPU ops, and the CUDA kernels
-    when a card is present (``torch.profiler``)."""
-    import os
-    from pathlib import Path
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    out = Path(log_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    n = len(list(out.glob(f"trace_{os.getpid()}_*.json")))
-    prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the active timer's counter ``name`` (no-op without
+    one)."""
+    timer = _current_timer.get() or _global_timer
+    if timer is not None:
+        timer.add(name, n)

@@ -48,6 +48,7 @@ from ..render.streaming import CellStreamer
 from ..utils.assets import AssetManager
 from ..utils.source import Directory
 from ..utils.thread_pool import ThreadPool
+from ..utils.tracing import stage
 
 
 @dataclass
@@ -233,7 +234,8 @@ class Viewer:
             # worker threads of GIL time; block on the pool's completion
             # event so the frame resumes exactly when a load lands (the
             # timeout only bounds liveness if the load set is stale)
-            self.cell_assets.wait_for_completion(timeout=0.05)
+            with stage("update.asset_wait"):
+                self.cell_assets.wait_for_completion(timeout=0.05)
         for event in self.cell_assets.poll_events():
             from ..utils.assets import AssetEventKind
 

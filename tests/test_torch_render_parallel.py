@@ -258,19 +258,6 @@ def test_dryrun_multichip_on_cpu():
     assert stats["points_visible"] > 0
 
 
-def test_device_trace_writes_a_chrome_trace(corridor, tmp_path):
-    """utils.tracing.device_trace around a mesh frame writes one Chrome
-    trace into the log directory, holding the frame's ops."""
-    from point_cloud_tpu_torch.utils.tracing import device_trace
-
-    with device_trace(tmp_path / "trace"):
-        mesh_frame(corridor, 2)
-    files = list((tmp_path / "trace").glob("trace_*.json"))
-    assert len(files) == 1
-    events = json.loads(files[0].read_text())["traceEvents"]
-    assert any("aten::" in str(e.get("name", "")) for e in events)
-
-
 @pytest.mark.cuda
 def test_mesh_frame_on_card_equals_cpu(corridor):
     """Four shards on one card: K1 and K2 launch once a shard and bucket,
