@@ -1,7 +1,8 @@
 """Cells: the hex-dedup point containers and their binary codec.
 
 Copy of the reference's ``core/cell.py``: ``tests/test_torch_host.py``
-holds its results equal to the reference's.
+holds its results equal to the reference's. The port adds
+:meth:`Cell.point_columns`, the renderer's read of a cell's points.
 
 Capability parity with the reference's ``Cell`` (point-converter/src/cell.rs):
 
@@ -260,6 +261,27 @@ class Cell:
 
     def all_points(self) -> PointBatch:
         return PointBatch.concat([self.points, self.overflow_points()])
+
+    def point_columns(self) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """The positions and colors of :meth:`all_points`, in its order, as
+        lists of arrays to concatenate: a segment with no displaced row and
+        each overflow buffer are handed over uncopied, and no sub-grid
+        index or distance is gathered (the renderer copies the points
+        once, into a bucket's rows)."""
+        positions, colors = [], []
+        for seg in self._segments:
+            if seg.valid.all():
+                positions.append(seg.positions)
+                colors.append(seg.colors)
+            else:
+                positions.append(seg.positions[seg.valid])
+                colors.append(seg.colors[seg.valid])
+        for buf in self.overflow.values():
+            if buf is not None:
+                batch = buf.to_batch()
+                positions.append(batch.positions)
+                colors.append(batch.colors)
+        return positions, colors
 
     def sub_grid_indices_for(self, positions: np.ndarray) -> np.ndarray:
         """Hex sub-grid index per point (cell.rs:276-278)."""

@@ -40,7 +40,7 @@ from .kernel import (
 )
 from .renderer import (
     PointRenderer, RenderSettings, _bounded_put, _start_readback,
-    check_ported, hierarchy_tables,
+    check_ported, hierarchy_tables, read_bucket_points,
 )
 
 _NO_ID = int(splat._NO_ID)
@@ -108,15 +108,12 @@ class MeshPointRenderer:
         """A bucket's rows, padded to a multiple of the mesh width and cut
         into one slice a shard on its device: (positions, hierarchy, valid,
         ids) lists, colors, n_real. Cached per (cell ids + generations,
-        id_base): a steady orbit uploads no points."""
+        id_base): a steady orbit reads and uploads no points."""
         key = (tuple((g[2], g[4]) for g in group), id_base)
         hit = self._bucket_cache.get(key)
         if hit is not None:
             return hit
-        positions = np.concatenate([g[3].positions for g in group])
-        colors = np.concatenate([g[3].colors for g in group])
-        hier = np.concatenate([np.full(len(g[3]), g[2].hierarchy, np.int32)
-                               for g in group])
+        positions, colors, hier = read_bucket_points(group)
         n_real = len(positions)
         n = self._pad_rows(n_real)
         pos_pad = np.zeros((n, 3), np.float32)

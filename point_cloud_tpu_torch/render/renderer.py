@@ -112,6 +112,22 @@ def hierarchy_tables(metadata: Metadata) -> tuple[np.ndarray, np.ndarray]:
     return sizes, spacings
 
 
+def read_bucket_points(bucket_cells) -> tuple:
+    """(positions, colors, hierarchy) of a bucket's rows: each gathered
+    cell's points (:meth:`Cell.point_columns`) read once, in gather order,
+    and copied once (one ``render.cells_read`` a cell)."""
+    count("render.cells_read", len(bucket_cells))
+    positions, colors, hierarchy = [], [], []
+    for c in bucket_cells:
+        pos, col = c[3].point_columns()
+        positions += pos
+        colors += col
+        hierarchy.append(np.full(sum(len(p) for p in pos), c[2].hierarchy,
+                                 np.int32))
+    return (np.concatenate(positions), np.concatenate(colors),
+            np.concatenate(hierarchy))
+
+
 def _bounded_put(cache: dict, key, value, limit: int) -> None:
     if len(cache) > limit:
         cache.pop(next(iter(cache)))
@@ -139,19 +155,22 @@ class PointRenderer:
         self._buffer_sizes: dict = {}
 
     def gather_points(self, streamer: CellStreamer, camera: Camera):
-        """Loaded cells as (bucket, distance, cell_id, points, generation),
-        sorted by (bucket, distance) (renderer.py:219-240)."""
+        """Loaded cells as (bucket, distance, cell_id, cell, generation),
+        sorted by (bucket, distance) (renderer.py:219-240). Reads no point:
+        a cell is empty by its header counters, its generation is taken
+        before any read, and a bucket reads its cells' points only when it
+        misses the device cache (:func:`read_bucket_points`)."""
         cells = []
         cam = camera.transform.translation
         for cell_id, cell in streamer.loaded.items():
             if cell_id.hierarchy in self.settings.hidden_hierarchies:
                 continue
-            pts = cell.all_points()
-            if len(pts) == 0:
+            generation = cell.generation
+            if cell.number_of_points + cell.number_of_overflow_points == 0:
                 continue
             distance = float(np.linalg.norm(cell.pos - cam))
             bucket = max(int(distance).bit_length() - 1, 0)
-            cells.append((bucket, distance, cell_id, pts, cell.generation))
+            cells.append((bucket, distance, cell_id, cell, generation))
         cells.sort(key=lambda c: (c[0], c[1]))
         return cells
 
@@ -161,7 +180,8 @@ class PointRenderer:
     def _bucket_device_arrays(self, bucket_cells):
         """(positions, hierarchy, valid, colors, n_real) for one bucket,
         padded to a pow2 row count and cached by the bucket's cells
-        (renderer.py:242-300): a steady orbit uploads no points."""
+        (renderer.py:242-300): a steady orbit reads and uploads no
+        points."""
         key = tuple((c[2], c[4]) for c in bucket_cells)
         hit = self._bucket_cache.get(key)
         if hit is not None:
@@ -169,11 +189,7 @@ class PointRenderer:
             return hit
         count("render.bucket_miss")
         with stage("render.upload"):
-            positions = np.concatenate([c[3].positions for c in bucket_cells])
-            colors = np.concatenate([c[3].colors for c in bucket_cells])
-            point_hier = np.concatenate(
-                [np.full(len(c[3]), c[2].hierarchy, np.int32)
-                 for c in bucket_cells])
+            positions, colors, point_hier = read_bucket_points(bucket_cells)
             n_real = len(positions)
             n = pad_to_bucket(max(n_real, 1), minimum=1 << 12)
             if n != n_real:

@@ -124,6 +124,106 @@ def test_cell_codec_matches_reference(name):
     assert rcell.Cell.from_bytes(port.to_bytes()).to_bytes() == data
 
 
+def origin_cell(limit=5_000):
+    """An empty hierarchy-0 port cell at the origin, and its config."""
+    config = tmeta.MetadataConfig(cell_point_overflow_limit=limit)
+    size = config.cell_size(0)
+    return config, tcell.Cell(tcell.CellId(0, (0, 0, 0)),
+                              config.sub_cell_size(size), size,
+                              config.cell_pos(np.zeros(3, np.int32), size))
+
+
+def batch(n, seed, lo=0.0, hi=4.0):
+    return tpoint.PointBatch(*cloud(n, seed, lo, hi))
+
+
+def counted_cell(case):
+    """A port cell brought along one path that builds or changes it; each
+    case checks that its path ran."""
+    if case == "from_bytes":
+        cell, _ = fill_cell(tcell, tmeta, tpoint, CELL_CASES["sparse"], 5)
+        cell = tcell.Cell.from_bytes(cell.to_bytes())
+        assert cell.number_of_points and cell.number_of_overflow_points
+        return cell
+    if case == "displacements":
+        _, cell = origin_cell()
+        for seed in (3, 4):
+            cell.add_points(batch(4_000, seed, hi=200.0))
+        assert any(not seg.valid.all() for seg in cell._segments)
+        return cell
+    if case == "overflow":
+        config, cell = origin_cell(limit=40)
+        cell.add_points(batch(500, 6))
+        staged = [{(0, 0, 0): 10, (1, 0, 0): 50, (2, 0, 0): 30},
+                  {(0, 0, 0): 10, (1, 0, 0): 5, (2, 0, 0): 20}]
+        for k, groups in enumerate(staged):
+            cell.add_points_in_overflow(
+                {key: batch(n, 100 * k + key[0]) for key, n in groups.items()},
+                config)
+        # (0,0,0) staged then appended; (1,0,0) tombstoned at once;
+        # (2,0,0) staged, then flushed and tombstoned
+        assert len(cell.overflow[(0, 0, 0)].chunks) == 2
+        assert cell.overflow[(1, 0, 0)] is None
+        assert cell.overflow[(2, 0, 0)] is None
+        return cell
+    if case == "compact":
+        _, cell = origin_cell()
+        for seed in range(tcell._MAX_SEGMENTS + 1):
+            cell.add_points(batch(300, 20 + seed, hi=200.0))
+        assert len(cell._segments) == 1 and cell._segments[0].valid.all()
+        return cell
+    assert case == "out_of_range"
+    _, cell = origin_cell()
+    for seed in (7, 8):
+        cell.add_points(batch(200, seed, 1e8, 1e8 + 1e6))
+    cell.add_points(batch(200, 9))
+    assert cell._out_of_range
+    return cell
+
+
+@pytest.mark.parametrize("case", ["from_bytes", "displacements", "overflow",
+                                  "compact", "out_of_range"])
+def test_cell_counters_count_its_points(case):
+    """The header counters the renderer's gather reads in O(1) count every
+    point ``all_points()`` returns."""
+    cell = counted_cell(case)
+    n = cell.number_of_points + cell.number_of_overflow_points
+    assert n == len(cell.all_points()) > 0
+
+
+@pytest.mark.parametrize("case", ["from_bytes", "displacements", "overflow",
+                                  "compact", "out_of_range"])
+def test_cell_point_columns_are_all_points(case):
+    """The renderer's read of a cell's positions and colors gives the
+    arrays ``all_points()`` gives, in its order."""
+    cell = counted_cell(case)
+    positions, colors = cell.point_columns()
+    points = cell.all_points()
+    assert np.array_equal(np.concatenate(positions), points.positions)
+    assert np.array_equal(np.concatenate(colors), points.colors)
+
+
+def test_gather_leaves_out_a_cell_of_tombstones():
+    """A cell whose overflow holds only tombstones has no point: the
+    gather leaves it out by its counters."""
+    from types import SimpleNamespace
+
+    from point_cloud_tpu_torch.render.camera import Camera
+    from point_cloud_tpu_torch.render.renderer import PointRenderer
+
+    config, tomb = origin_cell(limit=40)
+    tomb.add_points_in_overflow({(0, 0, 0): batch(50, 1)}, config)
+    assert tomb.overflow == {(0, 0, 0): None}
+    assert len(tomb.all_points()) == 0
+    _, full = origin_cell()
+    full.id = tcell.CellId(0, (1, 0, 0))
+    full.add_points(batch(100, 2))
+    renderer = PointRenderer(tmeta.Metadata(), device="cpu")
+    streamer = SimpleNamespace(loaded={tomb.id: tomb, full.id: full})
+    gathered = renderer.gather_points(streamer, Camera())
+    assert [c[3] for c in gathered] == [full]
+
+
 METADATA_BOXES = [
     ([-1.5, 0.1, -0.0], [2.25, 1e-7, 3.4e38]),
     ([1e-45, -1e20, 123456.79], [7.0, 1e20, 123456.8]),

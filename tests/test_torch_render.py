@@ -25,6 +25,10 @@
   the voronoi depth; measured on both test scenes: 0 of 19,200 rgb pixels
   differ, and the depth of 2,111 (cube) and 4,696 (corridor) pixels
   differs by at most 1.2e-7.
+- The gather reads no point: a frame whose buckets hit the device cache
+  reads no cell (single-device and mesh renderers), and each frame of a
+  renderer with warm caches, down a flight and after a cell changes in
+  place, equals a fresh renderer's.
 - The reference's image identities hold exactly in the port. (Its other
   render arms: tests/test_torch_arms.py, tests/test_torch_fusion_sorted.py.)
 - Footprint 1: every bucket of the port's frame (the reference's arm)
@@ -1053,6 +1057,161 @@ def test_pack_overflow_falls_back_to_sync_readback(tmp_path, monkeypatch):
     assert np.array_equal(base[0], fallback[0])
     assert np.array_equal(base[1], fallback[1])
     assert base[2] == fallback[2]
+
+
+# --- the gather reads a cell's points only on a bucket-cache miss --------
+
+
+def count_reads(monkeypatch) -> list:
+    """The ids of the cells whose points are read from now on (each call
+    of ``Cell._materialize`` or ``Cell.point_columns``)."""
+    calls = []
+
+    def counting(read):
+        def counted(self):
+            calls.append(self.id)
+            return read(self)
+        return counted
+
+    for name in ("_materialize", "point_columns"):
+        monkeypatch.setattr(TCell, name, counting(getattr(TCell, name)))
+    return calls
+
+
+def make_renderer(kind, tmeta):
+    """A CPU renderer at 96x72: the single-device default arms, or a
+    two-shard mesh with the plain raster arm it mirrors."""
+    if kind == "mesh":
+        from point_cloud_tpu_torch.parallel.mesh import make_mesh
+        from point_cloud_tpu_torch.render.parallel import MeshPointRenderer
+
+        return MeshPointRenderer(tmeta, make_mesh(2, device="cpu"),
+                                 settings=TSettings(
+                                     width=96, height=72, compact_raster=False,
+                                     megakernel=False, classing=False))
+    return TRenderer(tmeta, TSettings(width=96, height=72), device="cpu")
+
+
+def traced_render(renderer, streamer, cam, frustums):
+    """(rgb, depth, stats) and the frame's ``render.cells_read``."""
+    from point_cloud_tpu_torch.utils.tracing import StageTimer
+
+    with StageTimer() as timer:
+        out = renderer.render(streamer, cam, frustums)
+    return out, timer.counters["render.cells_read"]
+
+
+@pytest.mark.parametrize("kind", ["single", "mesh"])
+def test_steady_frames_read_no_points(tmp_path, monkeypatch, kind):
+    """A camera that moves within one bucket composition hits the bucket
+    cache: after the first frame, which reads each cell once, no cell's
+    points are read (no ``Cell._materialize`` or ``Cell.point_columns``,
+    no ``render.cells_read``)."""
+    meta = make_store(tmp_path, corridor(8_000, seed=53))
+    tmeta = port_metadata(meta)
+    cam = port_camera(corridor_camera(meta))
+    streamer, frustums = streamed(tmeta, tmp_path, cam, port=True)
+    renderer = make_renderer(kind, tmeta)
+
+    def composition():
+        return [(c[0], c[2]) for c in renderer.gather_points(streamer, cam)]
+
+    first = composition()
+    assert len({bucket for bucket, _ in first}) > 1
+    reads = count_reads(monkeypatch)
+    per_frame = []
+    for _ in range(4):
+        assert composition() == first
+        (_, _, stats), cells_read = traced_render(renderer, streamer, cam,
+                                                  frustums)
+        assert stats["points_visible"] > 0
+        per_frame.append((len(reads), cells_read))
+        reads.clear()
+        cam.transform.translation = (cam.transform.translation
+                                     + np.float32([0.0, 0.5, 0.25]))
+    assert per_frame == [(len(first), len(first))] + [(0, 0)] * 3
+
+
+def test_lazy_gather_draws_what_a_fresh_renderer_draws(tmp_path):
+    """Down a flight in which cells land and leave, each frame of one
+    renderer (warm caches: a hit reads no point) equals a fresh renderer's,
+    which reads every cell."""
+    from point_cloud_tpu_torch.render.frustums import (
+        update_streaming_frustums,
+    )
+    from point_cloud_tpu_torch.render.streaming import CellStreamer
+
+    meta = make_store(tmp_path, corridor(12_000, seed=59))
+    tmeta = port_metadata(meta)
+    cam = port_camera(corridor_camera(meta))
+    streamer = CellStreamer(
+        tmeta, loader=lambda cid: (TCell.from_path(tmp_path / cid.path())
+                                   if (tmp_path / cid.path()).exists()
+                                   else None))
+    renderer = make_renderer("single", tmeta)
+    held, reads = [], []
+    for _ in range(6):
+        frustums = update_streaming_frustums(tmeta, cam.transform,
+                                             cam.projection, cam.frustum())
+        streamer.update(frustums, cam.transform)
+        while streamer.fill_load_slots():
+            pass
+        held.append(set(streamer.loaded))
+        (rgb, depth, stats), cells_read = traced_render(renderer, streamer,
+                                                        cam, frustums)
+        fresh = make_renderer("single", tmeta).render(streamer, cam, frustums)
+        assert np.array_equal(rgb, fresh[0])
+        assert np.array_equal(depth, fresh[1])
+        assert stats == fresh[2] and stats["points_visible"] > 0
+        reads.append(cells_read)
+        cam.transform.translation = (cam.transform.translation
+                                     + np.float32([450.0, 0.0, 0.0]))
+    steps = list(zip(held, held[1:]))
+    assert any(b - a for a, b in steps) and any(a - b for a, b in steps)
+    assert sum(reads[1:]) < sum(len(h) for h in held[1:])
+
+
+def test_mutated_cell_is_read_again(tmp_path, monkeypatch):
+    """A loaded cell changed in place by ``add_points`` (a new generation)
+    is read again on the next frame, with the rest of its bucket only, and
+    the frame shows the change as a fresh renderer draws it."""
+    from point_cloud_tpu_torch.core import hex as thex
+    from point_cloud_tpu_torch.core.point import PointBatch as TPointBatch
+
+    meta = make_store(tmp_path, corridor(8_000, seed=61))
+    tmeta = port_metadata(meta)
+    cam = port_camera(corridor_camera(meta))
+    streamer, frustums = streamed(tmeta, tmp_path, cam, port=True)
+    renderer = make_renderer("single", tmeta)
+    before, _ = traced_render(renderer, streamer, cam, frustums)
+    # the cell that lights the most pixels: its rows' ids follow the
+    # gather's order from 1
+    cells = renderer.gather_points(streamer, cam)
+    sizes = [c[3].number_of_points + c[3].number_of_overflow_points
+             for c in cells]
+    starts = 1 + np.cumsum([0] + sizes[:-1])
+    ids = renderer.framebuffer.point_id.numpy()
+    lit = [int(((ids >= a) & (ids < a + n)).sum())
+           for a, n in zip(starts, sizes)]
+    bucket, _, target_id, target, _ = cells[int(np.argmax(lit))]
+    assert max(lit) > 0
+    # each stored point displaced by one at its slot's centre, in magenta
+    centres = thex.offset_to_world(target.sub_indices,
+                                   target.sub_cell_size / np.float32(2.0))
+    magenta = np.broadcast_to(np.uint8([255, 0, 255, 255]),
+                              (len(centres), 4))
+    displaced = target.add_points(TPointBatch(centres, magenta))
+    assert len(displaced) > 0
+    reads = count_reads(monkeypatch)
+    after, cells_read = traced_render(renderer, streamer, cam, frustums)
+    in_bucket = [c[2] for c in cells if c[0] == bucket]
+    assert sorted(reads, key=str) == sorted(in_bucket, key=str)
+    assert target_id in reads and cells_read == len(in_bucket)
+    assert not np.array_equal(after[0], before[0])
+    fresh = make_renderer("single", tmeta).render(streamer, cam, frustums)
+    assert np.array_equal(after[0], fresh[0])
+    assert np.array_equal(after[1], fresh[1])
+    assert after[2] == fresh[2]
 
 
 def chunk_bucket(n=1024, w=52, h=60):

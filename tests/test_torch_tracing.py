@@ -6,8 +6,9 @@ adds to the active timer's counters; with no timer installed both do
 nothing. A ``Viewer`` frame on the CPU records
 ``render.gather``, ``render.upload``, ``render.dispatch``, ``render.wait``
 and ``update.asset_wait`` inside the calls that made them, counts one
-``render.bucket_hit`` or ``render.bucket_miss`` a bucket, and renders the
-same bytes with the timer installed as without it.
+``render.bucket_hit`` or ``render.bucket_miss`` a bucket (and one
+``render.cells_read`` a cell a miss reads), and renders the same bytes
+with the timer installed as without it.
 """
 
 import threading
@@ -223,10 +224,12 @@ def test_buckets_miss_at_a_new_pose_then_hit(store):
         for _ in range(2):
             with StageTimer() as t:
                 _, _, stats = viewer.render()
-            runs.append((t, stats["buckets"]))
-        (first, buckets), (second, again) = runs
+            runs.append((t, stats["buckets"], stats["cells"]))
+        (first, buckets, cells), (second, again, _) = runs
         assert buckets == again > 0
-        assert dict(first.counters) == {"render.bucket_miss": buckets}
+        # the misses read each gathered cell once; the hits read none
+        assert dict(first.counters) == {"render.bucket_miss": buckets,
+                                        "render.cells_read": cells}
         assert dict(second.counters) == {"render.bucket_hit": buckets}
         assert "render.upload" in first.report()  # the misses' copies
         assert "render.upload" not in second.report()
