@@ -69,7 +69,8 @@ class Context:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        """Time one step of set-up, for the run's notes."""
+        """Time one step of set-up, for the run's notes and the readers of
+        ``setup.*`` (the run record's ``phases``: (name, seconds) pairs)."""
         t0 = time.perf_counter()
         try:
             yield
@@ -114,6 +115,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     run["setup_s"] = ctx.setup_s
+    run["phases"] = ctx.phases
     run.setdefault("notes", []).insert(0, "set-up: " + ", ".join(
         f"{name} {sec:.2f} s" for name, sec in ctx.phases))
     t0, t1 = run["window"]

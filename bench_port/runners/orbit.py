@@ -8,7 +8,10 @@ sets the camera to frame k's pose (on the circle of radius
 ``radius_extent`` x the cloud's extent at ``height_extent`` x the extent,
 ``deg_per_frame`` degrees on from a start angle drawn from the seed,
 looking at the centre), then runs ``update(dt)`` and ``render_pipelined()``
-as the window loop does; loads stay asynchronous.
+as the window loop does; loads stay asynchronous. A traced run also
+runs the window under the program's ``StageTimer``: its spans on the main
+thread inside the window join the benchmark's, and its counters go on the
+run record as ``program_counters``.
 
 The check: every frame whose index the seed picks, and the last, against
 the reference frame of the cells the viewer held when it started that
@@ -20,6 +23,8 @@ the reference frame of that set.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 import numpy as np
@@ -52,8 +57,10 @@ def settle(viewer, dt: float, limit: int = 20_000) -> None:
 def run(ctx) -> dict:
     import torch
 
+    from point_cloud_tpu_torch.ops.runtime import load_kernels
     from point_cloud_tpu_torch.render.renderer import RenderSettings
     from point_cloud_tpu_torch.render.transform import Transform
+    from point_cloud_tpu_torch.utils import tracing
     from point_cloud_tpu_torch.viewer.app import Viewer
 
     scene, mix = ctx.config["scene"], ctx.mix
@@ -98,6 +105,10 @@ def run(ctx) -> dict:
             viewer._camera_dirty = True
 
         set_pose(0)
+        if ctx.device.type == "cuda":
+            # the kernels' build (a checkout's first run) is its own step
+            with ctx.phase("build"):
+                load_kernels()
         with ctx.phase("settle"):
             settle(viewer, dt)
         with ctx.phase("warm"):
@@ -112,25 +123,30 @@ def run(ctx) -> dict:
         held, kept, done = {}, {}, []
         last = None
         k = 0
-        t0 = ctx.start_window()
-        while True:
-            set_pose(k)
-            with ctx.spans.span("frame.update"):
-                viewer.update(dt)
-            held[k] = list(viewer.streamer.loaded)
-            with ctx.spans.span("frame.render"):
-                out = viewer.render_pipelined()
-            now = time.perf_counter()
-            if out is not None:
-                done.append((now, out[2]))
-                last = (k - 1, out[0])
-                if pick[k - 1]:
-                    kept[k - 1] = out[0]
-            k += 1
-            if now - t0 >= ctx.seconds or k == MAX_FRAMES:
-                break
-        t1 = time.perf_counter()
+        # a traced run also keeps the program's own spans and counters
+        timer = tracing.StageTimer() if ctx.traced else None
+        with timer or contextlib.nullcontext():
+            t0 = ctx.start_window()
+            while True:
+                set_pose(k)
+                with ctx.spans.span("frame.update"):
+                    viewer.update(dt)
+                held[k] = list(viewer.streamer.loaded)
+                with ctx.spans.span("frame.render"):
+                    out = viewer.render_pipelined()
+                now = time.perf_counter()
+                if out is not None:
+                    done.append((now, out[2]))
+                    last = (k - 1, out[0])
+                    if pick[k - 1]:
+                        kept[k - 1] = out[0]
+                k += 1
+                # the window closes once its time is up and a frame is back
+                if (now - t0 >= ctx.seconds and done) or k == MAX_FRAMES:
+                    break
+            t1 = time.perf_counter()
         ctx.dtrace.stop()
+        program_counters = _program_spans(timer, ctx.spans, t0, t1)
         peak = ctx.peak_bytes()
         del renderer_counts[len(done):]  # landings of the window's frames
         viewer.render_flush()
@@ -165,6 +181,7 @@ def run(ctx) -> dict:
     limits = mix["limits"]
     times = [t for t, _ in done]
     return {
+        "program_counters": program_counters,
         "window": (t0, t1), "frames": len(done),
         "intervals": list(np.diff([t0] + times)),
         "attempted": len(done), "failed": 0,
@@ -187,6 +204,19 @@ def _differ_pct(a: np.ndarray, b: np.ndarray) -> float:
     if a.shape != b.shape:
         return 100.0
     return 100.0 * float(np.any(a != b, axis=-1).mean())
+
+
+def _program_spans(timer, spans, t0: float, t1: float) -> dict | None:
+    """Add the main thread's program spans that lie in the window to
+    ``spans`` under their own names; return the program's counters (None
+    in an untraced run, which keeps no timer)."""
+    if timer is None:
+        return None
+    main = threading.get_ident()
+    for name, s0, s1, tid in timer.intervals:
+        if tid == main and t0 <= s0 and s1 <= t1:
+            spans.items.append((name, s0, s1))
+    return dict(timer.counters)
 
 
 def _count_landings(renderer, sink: list) -> None:

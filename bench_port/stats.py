@@ -22,6 +22,14 @@ def mean(values) -> float | None:
     return sum(values) / len(values) if values else None
 
 
+def span_ms_per_frame(run: dict, name: str) -> float | None:
+    """Milliseconds a frame that the program's span ``name`` took over the
+    window; None in an untraced run, which keeps no program spans."""
+    if run.get("program_counters") is None or not run["frames"]:
+        return None
+    return sum(run["spans"].durations(name)) * 1e3 / run["frames"]
+
+
 def bound_s(bytes_moved: float, ops: float) -> float:
     """Least time the card needs: the larger of the byte and the f32
     operation bound."""

@@ -22,11 +22,11 @@ def bench():
 
 
 def small_config(bench: dict, name: str) -> dict:
-    """The configuration with its scene cut to a size the CPU renders and
-    converts in seconds; the store settings stay as they are."""
+    """The configuration with its scene cut by its own
+    ``scenes/<kind>.py`` ``small`` to a size the CPU renders and converts
+    in seconds; the store settings stay as they are."""
     cfg = spec.config(bench, name)
-    cfg["scene"].update(tile_m=60.0, pulses_per_m2=4.0,
-                        buildings_per_tile=3, trees_per_tile=15)
+    cfg["scene"] = spec.scene(cfg["scene"]["kind"]).small(cfg["scene"])
     return cfg
 
 

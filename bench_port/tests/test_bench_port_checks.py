@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench_port import calibrate
+from bench_port import calibrate, spec
 from bench_port.reference import frame as ref_frame
 from bench_port.reference import hexgrid
 from bench_port.reference import store as ref_store
@@ -16,11 +16,25 @@ from bench_port.run import run_cell
 from conftest import small_config, small_mix
 
 CPU = torch.device("cpu")
-CELLS = ["aerial_ql1.orbit"]
+
+
+def orbit_cells(bench: dict) -> list[str]:
+    """The cells whose traffic mix the orbit runner runs: the broken-path
+    faults below break that runner's renderer; a later runner brings its
+    own."""
+    return [w["name"] for w in bench["workloads"]
+            if spec.traffic(w["traffic"])["runner"] == "orbit"]
+
+
+CELLS = orbit_cells(spec.load_benchmark())
+
+
+def _config(bench, workload):
+    return small_config(bench, spec.cell(bench, workload)["config"])
 
 
 def _run(bench, workload, seed=2**31 + 17, seconds=1.5):
-    cfg = small_config(bench, workload.split(".")[0])
+    cfg = _config(bench, workload)
     return run_cell(workload, seed, seconds, False, CPU, bench=bench,
                     config=cfg, mix=small_mix(bench, workload))[0]
 
@@ -55,7 +69,7 @@ def test_sound_runs_pass_and_the_control_fails(bench, workload):
     result = _run(bench, workload)
     assert result["correct"], result["compared"]
     assert result["attempted"] > 0
-    cfg = small_config(bench, workload.split(".")[0])
+    cfg = _config(bench, workload)
     control = calibrate.control(workload, 5, CPU, cfg,
                                 small_mix(bench, workload), frames=2,
                                 bench=bench)
@@ -95,6 +109,7 @@ def test_a_broken_frame_is_not_correct(bench, monkeypatch, workload, fault):
     assert not _run(bench, workload)["correct"]
 
 
+@pytest.mark.cuda
 def test_reference_frame_is_the_same_on_the_card(bench, cuda_device,
                                                  tmp_path):
     from bench_port import gen

@@ -4,6 +4,7 @@ configured sizes, the metric arithmetic, and the import rules."""
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 from pathlib import Path
 
@@ -13,6 +14,7 @@ import pytest
 from bench_port import gen, spec, stats
 from bench_port.runners import orbit
 from bench_port.run import FORBIDDEN_MODULES, forbidden_imports
+from conftest import small_config
 
 HERE = Path(spec.__file__).resolve().parent
 
@@ -27,13 +29,15 @@ def test_every_cell_resolves_by_name(bench):
         e2e = spec.metrics_for(bench, w["name"], traced=False)
         names = {m["name"] for m in e2e}
         assert "setup_s" in names and len(names) >= 2
-        assert spec.metrics_for(bench, w["name"], traced=True)
+        per_layer = spec.metrics_for(bench, w["name"], traced=True)
+        assert per_layer and {m["moves"] for m in per_layer} <= names
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(spec.reader(m["name"]))
         assert set(m.get("workloads", [])) <= cells
     for m in bench["per_layer"]:
         moved = next(e for e in bench["end_to_end"] if e["name"] == m["moves"])
-        assert set(m["workloads"]) <= set(moved.get("workloads", cells))
+        assert set(m.get("workloads", [])) <= \
+            set(moved.get("workloads", cells))
 
 
 def test_benchmark_file_shape():
@@ -76,6 +80,74 @@ def test_a_block_of_tiles_decodes_in_order(bench):
     np.testing.assert_array_equal(col, np.concatenate([c for _, c in parts]))
     steps = pos.astype(np.float64) / 0.01  # on the LAS scale's grid
     assert np.abs(steps - steps.round()).max() < 1e-2
+
+
+# sha256 of the small scene's tiles (fields by name: name, dtype, shape,
+# bytes): the aerial inputs every recorded measurement was taken on, which
+# a change to the harness must leave byte for byte
+AERIAL_SHA256 = {
+    (7, 0): "82070cbe05185bcc230174be88dc3983e84c3cbdbb529929e163b3af615fa65e",
+    (7, 3): "297a873e6a64eb153f6ae5d2a5191224c143ef6e409df2f1c94073299b74e26c",
+    (2**33 + 5, 0):
+        "4a1f0868c506e625be251b40c7006b2ea5c4df5395d4cc5de11c228231378b9e",
+    (2**33 + 5, 3):
+        "01f66e9828fd9fbb3b2720bfa59abb4ff89f9a4eaa2a5ade787403d2776f3c2e",
+}
+
+
+def _sha256(fields: dict) -> str:
+    h = hashlib.sha256()
+    for name in sorted(fields):
+        a = np.ascontiguousarray(fields[name])
+        h.update(f"{name}:{a.dtype.str}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("seed,tile", sorted(AERIAL_SHA256))
+def test_aerial_tiles_keep_their_bytes(bench, seed, tile):
+    cfg = small_config(bench, "aerial_ql1")
+    fields = gen.input_fields(cfg["scene"], seed, tile)
+    assert _sha256(fields) == AERIAL_SHA256[seed, tile]
+
+
+def test_every_scene_provides_the_interface(bench):
+    kinds = sorted(p.stem for p in (HERE / "scenes").glob("*.py"))
+    assert "aerial_tiles" in kinds
+    for kind in kinds:
+        module = spec.scene(kind)
+        for name in ("fields", "decoded", "points", "small"):
+            assert callable(getattr(module, name, None)), (kind, name)
+    for c in bench["configs"]:
+        cfg = spec.config(bench, c["name"])
+        assert cfg["scene"]["kind"] in kinds
+        cut = small_config(bench, c["name"])
+        assert cut["metadata"] == cfg["metadata"]
+        assert cut["scene"]["kind"] == cfg["scene"]["kind"]
+        assert gen.input_points(cut["scene"]) < \
+            gen.input_points(cfg["scene"])
+
+
+def test_an_unknown_scene_kind_names_its_file():
+    with pytest.raises(ValueError, match=r"bench_port/scenes/no_such\.py"):
+        gen.input_fields({"kind": "no_such"}, 1, 0)
+
+
+def test_the_checks_run_over_every_orbit_cell(monkeypatch):
+    from test_bench_port_checks import CELLS, orbit_cells
+
+    assert "aerial_ql1.orbit" in CELLS
+    # a second orbit cell joins the checks by its entry alone; a cell of
+    # another runner does not, since the faults break the orbit's renderer
+    runners = {"orbit": "orbit", "slow_orbit": "orbit", "convert": "convert"}
+    monkeypatch.setattr(spec, "traffic",
+                        lambda name: {"runner": runners[name]})
+    bench = {"workloads": [
+        {"name": "a.orbit", "traffic": "orbit"},
+        {"name": "a.convert", "traffic": "convert"},
+        {"name": "b.slow_orbit", "traffic": "slow_orbit"},
+    ]}
+    assert orbit_cells(bench) == ["a.orbit", "b.slow_orbit"]
 
 
 def test_p95_is_the_nearest_rank():
@@ -122,7 +194,9 @@ def test_nothing_imports_jax_or_the_jax_package():
     banned = FORBIDDEN_MODULES | {"bench", "chip_smoke"}
     for path in HERE.rglob("*.py"):
         assert not _imports(path) & banned, path
-    for path in (HERE / "reference").rglob("*.py"):
+    yardstick = [HERE / "gen.py", *(HERE / "reference").rglob("*.py"),
+                 *(HERE / "scenes").rglob("*.py")]
+    for path in yardstick:
         assert "point_cloud_tpu_torch" not in _imports(path), path
 
 
