@@ -34,6 +34,12 @@ use. Imports no JAX. Phases, one JSON line each:
    over B3 alone: its one kernel, no memset; the fused front end (beside
    its tile kernel alone), B3, the light pass and its plain twin timed
    at 2^18 and 2^20 (device time, CUDA events, bounds);
+   then K6 (``lod_select``, the renderer's LOD walk: :func:`phase_lod`)
+   bit-exact against its plain version at the indoor orbit's bucket
+   sizes (2^12-2^18 rows over twelve hierarchies) and on the edge cases
+   of ``LOD_EDGES``, one launch a call, and timed at every size from a
+   flushed L2 beside the plain version and its bound, with a walking
+   frame's sum;
 4. slice: a 2^23-point LiDAR-like cloud (the port's ``synth_cloud``)
    written to PLY and converted by the port's CLI at batch 2^18, in
    subprocesses, three times: ``--device`` (the Python-cell
@@ -63,7 +69,9 @@ use. Imports no JAX. Phases, one JSON line each:
    ``compact_perm`` and ``budget_table``) is held bit-exact against its
    plain version (``perm`` with its pad, ``counts``, ``offsets``,
    ``dest``) on every ranking of the frame and of the synthetic and edge
-   buckets (:class:`RankCapture`), and on a sweep (:func:`rank_sweep`):
+   buckets (:class:`RankCapture`), and every K6 walk of that first frame
+   (:class:`LodCapture`: every bucket walks) against its plain version,
+   and on a sweep (:func:`rank_sweep`):
    N = 2^10..2^22, 1000 and 3, C = 1, 2, 13, 130, 9000, rows of no class
    and one class holding every row, caps 0, 1, N/3 and N; where the plain
    version's (C+1) x N one-hot passes RANK_PLAIN_SLOTS, against a stable
@@ -160,7 +168,9 @@ sorted columns written a row (with ``sort4_bound_ms`` beside it) and
 ``class_rank`` (K5) its rung column read and its 2N perm slots written
 (:func:`rank_bound_ms`), each against its operations at the card's f32
 rate. K5's ``launches_by_path`` counts it on the orbit, serve, window,
-arms, mesh and footprint frames, each more than 0.
+arms, mesh and footprint frames, each more than 0; K6's counts its walks
+there (a walk runs only where the loaded set changed, so a path may read
+0; the orbit's changes, so its count, K6's ``launches``, is more than 0).
 Every timed block starts on a card held busy for WARM_S seconds (an idle
 H100 clocks 840 of 1,980 MHz), and K1, K3 and K4 are timed from an L2
 flushed before each call, as a frame finds it. ``splat_raster``'s is
@@ -1617,6 +1627,165 @@ def time_rank(torch, splat, rung, n_classes: int) -> dict:
             "plain_kernels_ms": plain_kernels}
 
 
+# --- K6, the LOD walk -------------------------------------------------------
+
+LOD_KERNEL = "lod_select_kernel"
+LOD_LEVELS = 12  # the indoor area's store (models.synth.LOD_LEVELS)
+LOD_LOG_N = tuple(range(12, 19))  # the indoor orbit's padded bucket sizes
+# one walking frame of the indoor orbit: 0.25-0.34 M rows in 5-7 buckets
+LOD_FRAME_LOG_N = (18, 16, 15, 14, 13, 12)
+# models.synth.LOD_CASES but "deep", and the card's "extreme"
+LOD_EDGES = ("own_out_of_range", "gap", "empty_table", "padding", "extreme")
+# a probe: three IEEE divides and floors, the four-round row hash, four
+# row compares (~50 operations)
+LOD_OPS_PER_PROBE = 50
+LOD_BY_PATH: dict = {}  # K6's launches on each frame path
+
+
+def lod_inputs(torch, kernel, n: int, case: str = "deep",
+               seed: int = 0) -> tuple:
+    """One bucket's LOD walk arguments on the card: ``models.synth``'s
+    :func:`lod_case` (the tests' cases, shaped like the indoor orbit's
+    buckets over LOD_LEVELS hierarchies) with its hash table built."""
+    from point_cloud_tpu_torch.models.synth import lod_case
+
+    positions, point_h, sizes, table, _ = lod_case(case, n, seed=seed)
+
+    def dev(a):
+        return torch.as_tensor(a, device="cuda").contiguous()
+
+    return (dev(positions), dev(point_h), dev(sizes), LOD_LEVELS,
+            dev(kernel.build_loaded_cells_hash(table)))
+
+
+def lod_err(torch, kernel, args, got) -> int:
+    """K6's result against the plain version's on the same arguments."""
+    ref = kernel.lod_select_reference(*args)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or got.shape != ref.shape:
+        raise AssertionError(f"lod_select gave {got.dtype} {tuple(got.shape)}")
+    return int((got - ref).abs().max()) if got.numel() else 0
+
+
+class LodCapture:
+    """Wraps the renderer's K6 wrapper (``renderer.lod_select``) while it
+    is installed and keeps each call's arguments and result, so that
+    ``check`` holds every walk of the frame against the plain version."""
+
+    def __init__(self, renderer_module):
+        self.module, self.calls = renderer_module, []
+        self.real = renderer_module.lod_select
+
+    def __enter__(self):
+        def wrap(*args):
+            out = self.real(*args)
+            self.calls.append((args, out))
+            return out
+
+        self.module.lod_select = wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.module.lod_select = self.real
+
+    def check(self, torch, kernel) -> dict:
+        errs = [lod_err(torch, kernel, args, out) for args, out in self.calls]
+        if not errs or max(errs):
+            raise AssertionError(f"the frame's K6 calls: errors {errs}")
+        return {"calls": len(errs), "max_abs_err": max(errs),
+                "rows": [args[0].shape[0] for args, _ in self.calls],
+                "levels": self.calls[0][0][3]}
+
+
+def lod_bound_ms(torch, args, result) -> tuple[float, str, int]:
+    """K6's bound on one walk: 12 B of position and 4 B of hierarchy read
+    and 4 B written a row, the cell sizes and the table read once, at the
+    HBM rate; or LOD_OPS_PER_PROBE a probe the walk made (its hits, plus
+    the miss that ended it short of the last level) at the card's rate,
+    whichever is larger. Also returns the probes."""
+    positions, hier, sizes, levels, table = args
+    last = levels - 1
+    base = hier.clamp(max=last).clamp(min=0)  # the walk starts past it
+    hits = (result - base).clamp(min=0)
+    probes = int((hits + ((result < last) & (base < last)).int()).sum())
+    moved = 20 * positions.shape[0] + 4 * sizes.numel() + 4 * table.numel()
+    bound, by = pass_bound_ms(moved, LOD_OPS_PER_PROBE * probes)
+    return bound, by, probes
+
+
+def phase_lod(torch, np) -> dict:
+    """K6 against its plain version on the card at the indoor orbit's
+    bucket sizes (deep, 2^12-2^18 rows) and on LOD_EDGES at 2^14, one
+    launch a call; then plain, kernel, kernel, plain at every size from a
+    flushed L2 (a landing finds its bucket cold), with the bound, and a
+    walking frame's sum over LOD_FRAME_LOG_N."""
+    from point_cloud_tpu_torch.render import kernel
+
+    held = kernel.lod_launches
+    errs = {}
+    for log_n in LOD_LOG_N:
+        args = lod_inputs(torch, kernel, 1 << log_n, seed=log_n)
+        errs[f"deep_{log_n}"] = lod_err(torch, kernel, args,
+                                        kernel.lod_select(*args))
+    for case in LOD_EDGES:
+        args = lod_inputs(torch, kernel, 1 << 14, case, seed=99)
+        errs[case] = lod_err(torch, kernel, args, kernel.lod_select(*args))
+    if kernel.lod_launches != held + len(errs):
+        raise AssertionError(f"K6 launched {kernel.lod_launches - held} "
+                             f"times for {len(errs)} calls")
+    if max(errs.values()):
+        raise AssertionError(f"lod_select != plain: {errs}")
+    flush = l2_flush(torch)
+    by_n = {}
+    for log_n in LOD_LOG_N:
+        n = 1 << log_n
+        args = lod_inputs(torch, kernel, n, seed=log_n)
+        result = kernel.lod_select(*args)
+        t = time_kernel(torch, lambda: kernel.lod_select(*args),
+                        lambda: kernel.lod_select_reference(*args),
+                        LOD_KERNEL, plain_reps=3, setup=flush)
+        bound, by, probes = lod_bound_ms(torch, args, result)
+        by_n[n] = {**t, "bound_ms": bound, "bound_by": by, "probes": probes,
+                   "row_levels": n * (LOD_LEVELS - 1),
+                   "table_buckets": args[4].shape[0]}
+    kernel.lod_launches = held
+    frame_ns = [1 << log_n for log_n in LOD_FRAME_LOG_N]
+    result = {"phase": "lod", "ok": True, "levels": LOD_LEVELS,
+              "max_abs_err": max(errs.values()), "checked": sorted(errs),
+              "by_n": by_n,
+              "walking_frame": {
+                  "rows": sum(frame_ns),
+                  **{k: sum(by_n[n][k] for n in frame_ns)
+                     for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}}}
+    emit(result)
+    return result
+
+
+def lod_kernel_entry(lod: dict, frame_check: dict) -> dict:
+    """K6's entry of the kernels line: timed at the orbit's largest
+    bucket, 2^18 rows over twelve hierarchies; launched by the orbit."""
+    top = lod["by_n"][1 << max(LOD_LOG_N)]
+    return {
+        "name": "lod_select", "route": "cuda",
+        "source": "point_cloud_tpu_torch/csrc/lod_select.cu",
+        "replaces": "point_cloud_tpu/render/kernel.py:172-196",
+        "also_replaces": ["point_cloud_tpu/render/kernel.py:126-136"],
+        "launches": LOD_BY_PATH["orbit"],
+        "max_abs_err": max(lod["max_abs_err"], frame_check["max_abs_err"]),
+        **{k: top[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                               "bound_by", "ms_runs", "plain_ms_runs")},
+        "bound_memory": "HBM", "timed_from": "a flushed L2",
+        # no one PyTorch call walks a row's levels with an early exit
+        "library_ms": None,
+        "launches_by_path": dict(LOD_BY_PATH),
+        "n": 1 << max(LOD_LOG_N), "levels": lod["levels"],
+        "by_n": lod["by_n"], "walking_frame": lod["walking_frame"],
+        "frame_check": frame_check,
+        "unit": "one walk of a bucket (one launch); bound: 20 B a row, the "
+                "table once",
+    }
+
+
 def busy_share(torch, fn, top: int | None = 8) -> dict:
     """Run ``fn`` once under torch.profiler: the device time of its
     kernels and copies over the host wall time of the call, and the
@@ -1667,6 +1836,7 @@ def host_profile(fn, top: int = 14) -> dict:
 
 def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     from point_cloud_tpu_torch.render import kernel, splat
+    from point_cloud_tpu_torch.render import renderer as renderer_module
     from point_cloud_tpu_torch.render.renderer import (
         PointRenderer, RenderSettings,
     )
@@ -1690,12 +1860,14 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
         return bucket_pass(framebuffer, *args, **kw)
 
     ranks = RankCapture(splat)  # K5's calls of the frame and the buckets
+    lods = LodCapture(renderer_module)  # the first frame walks every bucket
     splat.render_bucket_pass = capture
     try:
-        with ranks:
+        with ranks, lods:
             rgb_gpu, depth_gpu, stats_gpu = viewer.render()
     finally:
         splat.render_bucket_pass = bucket_pass
+    lod_check = lods.check(torch, kernel)
     if not captured:
         raise AssertionError("the frame rendered no bucket")
     frame_ranks = ranks.check(torch)
@@ -1794,7 +1966,8 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
                     * -(-FRAME_W // kernel.PYRAMID_TILE))
 
     # 5c: the orbit, the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = splat.rank_launches = 0
+    kernel.launches = kernel.lod_launches = 0
+    splat.launches = splat.rank_launches = 0
     times = []
     render = viewer.render
 
@@ -1812,8 +1985,11 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     launches = {"cull_classify": kernel.launches,
                 "splat_raster": splat.launches,
                 "class_rank": splat.rank_launches}
+    LOD_BY_PATH["orbit"] = kernel.lod_launches
     if len(paths) != ORBIT_FRAMES or min(launches.values()) <= 0:
         raise AssertionError(f"the orbit did not run its kernels: {launches}")
+    if kernel.lod_launches <= 0:  # its loaded set changes, so it walks
+        raise AssertionError("the orbit launched no LOD walk (K6)")
     if launches["splat_raster"] != launches["cull_classify"]:
         raise AssertionError(f"not one raster launch a bucket: {launches}")
     frame = render()
@@ -1872,6 +2048,7 @@ def phase_frame(torch, np, store: Path, tmp: Path) -> dict:
     instr_ms = raster_instr_bound_ms(tested, frags, sms, clock_mhz)
     return {
         "frame": result,
+        "lod": lod_check,
         "rank": {**rank_t, "checks": rank_checks},
         "cull": {**cull_t, "n": n_big, "inside": inside,
                  "max_abs_err": max(b["cull_err"] for b in buckets + [synth]),
@@ -1993,7 +2170,8 @@ def phase_window(torch, np, store: Path) -> dict:
         backend = StubBackend([[WindowEvent("key_down", key="w"),
                                 WindowEvent("key_down", key="v"),
                                 WindowEvent("key_up", key="v")]])
-        kernel.launches = splat.launches = splat.rank_launches = 0
+        kernel.launches = kernel.lod_launches = 0
+        splat.launches = splat.rank_launches = 0
         t0 = time.perf_counter()
         frames = WindowLoop(viewer, backend).run(max_frames=WINDOW_FRAMES)
         torch.cuda.synchronize()
@@ -2001,6 +2179,7 @@ def phase_window(torch, np, store: Path) -> dict:
         launches = {"cull_classify": kernel.launches,
                     "splat_raster": splat.launches,
                     "class_rank": splat.rank_launches}
+        LOD_BY_PATH["window"] = kernel.lod_launches
         moved = float(np.linalg.norm(
             np.array(viewer.camera.transform.translation) - start))
         voronoi = viewer.settings.voronoi
@@ -2041,7 +2220,8 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
 
     fp1 = KernelCapture(kernel, splat)
     # the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = splat.rank_launches = 0
+    kernel.launches = kernel.lod_launches = 0
+    splat.launches = splat.rank_launches = 0
     httpd = serve(store, host="127.0.0.1", port=0, convert_root=root)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -2129,6 +2309,7 @@ def phase_serve(torch, np, store: Path, tmp: Path, smi: str,
         launches = {"cull_classify": kernel.launches,
                     "splat_raster": splat.launches,
                     "class_rank": splat.rank_launches}
+        LOD_BY_PATH["serve"] = kernel.lod_launches
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2466,7 +2647,8 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
 
     default, default_ms, default_r = run({})
     # the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = splat.rank_launches = 0
+    kernel.launches = kernel.lod_launches = 0
+    splat.launches = splat.rank_launches = 0
     splat.fragment_launches = splat.merge_launches = 0
     sort.launches = 0
     sort.launches_by_n.clear()
@@ -2496,6 +2678,7 @@ def phase_arms(torch, np, store: Path, sort_checked: set) -> dict:
                 "class_rank": splat.rank_launches,
                 "emit_fragments": splat.fragment_launches,
                 "sorted_merge": splat.merge_launches, "sort4": sort.launches}
+    LOD_BY_PATH["arms"] = kernel.lod_launches
     if not rank_checks["budget"]["with_dest"] or not any(
             c["capped"] for c in rank_checks.values()):
         raise AssertionError(f"the arms' K5 calls: {rank_checks}")
@@ -2939,7 +3122,8 @@ def phase_mesh_frame(torch, np, store: Path) -> dict:
     single_r = PointRenderer(viewer.metadata, plain, device="cuda")
     single, single_ms = frames_of(single_r, MESH_FRAMES)
     # the main path's run: every count starts at 0 here
-    kernel.launches = splat.launches = splat.rank_launches = 0
+    kernel.launches = kernel.lod_launches = 0
+    splat.launches = splat.rank_launches = 0
     mesh_r = MeshPointRenderer(viewer.metadata,
                                make_mesh(devices=card * MESH_SHARDS),
                                settings=plain)
@@ -2950,6 +3134,7 @@ def phase_mesh_frame(torch, np, store: Path) -> dict:
     launches = {"cull_classify": kernel.launches,
                 "splat_raster": splat.launches,
                 "class_rank": splat.rank_launches}
+    LOD_BY_PATH["mesh"] = kernel.lod_launches
     rank_check = ranks.check(torch)
     buckets = frames[0][3]["buckets"]
     expect = MESH_FRAMES * MESH_SHARDS * buckets
@@ -3209,7 +3394,8 @@ def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
 
     # the main path's run: every count starts at 0 here, and only the
     # frames add to it (:func:`driven`), not the checks and timings
-    kernel.launches = splat.launches = splat.rank_launches = 0
+    kernel.launches = kernel.lod_launches = 0
+    splat.launches = splat.rank_launches = 0
     splat.fragment_launches = splat.merge_launches = 0
     sort.launches = 0
     sort.launches_by_n.clear()
@@ -3455,6 +3641,7 @@ def phase_footprints(torch, np, store: Path, sort_checked: set) -> dict:
         raise AssertionError(f"lengths {sorted(set(by_n) - lengths)} sorted "
                              "but not checked")
     sort_checked.update(lengths)
+    LOD_BY_PATH["footprints"] = kernel.lod_launches
     result = {
         "phase": "footprints", "ok": True, "width": FRAME_W,
         "height": FRAME_H, "pose": {"yaw": ARM_YAW, "pitch": ARM_PITCH},
@@ -3614,6 +3801,7 @@ def main(argv=None) -> int:
         return footprints_alone(torch, np, smi)
     kernel = phase_kernel(torch, np, sort)
     passed = phase_pass(torch, np, dedup, get_pipeline)
+    lod = phase_lod(torch, np)
     sort_checked = {1 << log_n for log_n in SORT_SIZES}
     # lengths checked by kernel: sort4's in phase 2, the front end's in 3
     checked = {"sort4": sort_checked,
@@ -3852,8 +4040,9 @@ def main(argv=None) -> int:
             "n", "classes", "kept", "ms", "wrapper_ms", "plain_ms",
             "bound_ms", "library_ms", "ms_by_kernel")}
             for fp in FOOTPRINT_TIMED},
-    }, *(pass_kernel_entry(name, passed, sliced, meshed, multihost)
-         for name in PASS_KERNEL_SOURCES)]})
+    }, lod_kernel_entry(lod, framed["lod"]),
+        *(pass_kernel_entry(name, passed, sliced, meshed, multihost)
+          for name in PASS_KERNEL_SOURCES)]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

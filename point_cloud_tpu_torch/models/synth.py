@@ -5,6 +5,9 @@ cloud), for ``chip_smoke.py`` and the tests; a test holds it equal to
 the original. :func:`pass_case` and :func:`resident_case` are the
 dedup pass's inputs on the shapes its kernels must meet, shared by
 ``tests/test_torch_pass_kernels.py`` and ``chip_smoke.py`` phase 3.
+:func:`lod_case` is one bucket's LOD walk (``render/kernel.py``
+``lod_select``, K6) on its edge cases, shared by
+``tests/test_torch_render.py`` and ``chip_smoke.py``'s phase ``lod``.
 """
 
 from __future__ import annotations
@@ -97,3 +100,71 @@ def resident_case(n: int, seed: int = 0):
     src_packed = np.full(n, _I32_MAX, np.int32)
     src_packed[: len(src)] = src[rng.permutation(len(src))]
     return resident, src_packed, extras
+
+
+# the LOD walk's cases: an indoor-deep walk, own hierarchies at and past
+# the last (and below 0), a coarse cell missing under loaded finer ones,
+# no loaded cell at all, the renderer's padding rows; "extreme" (rows at
+# +-3e9, 1e30, inf and NaN) is for the card alone: a CPU's float to int
+# cast of them is not defined
+LOD_CASES = ("deep", "own_out_of_range", "gap", "empty_table", "padding")
+LOD_LEVELS = 12  # the indoor store's hierarchies
+
+
+def lod_case(case: str, n: int = 1 << 12, num_h: int = LOD_LEVELS,
+             seed: int = 3):
+    """``(positions, point_h, sizes, table rows, gap rows)`` of one LOD
+    walk case: points over a 50 x 20 x 3 m area, own hierarchies 0-7 as
+    in the indoor orbit's frames, the default config's cell sizes (1000 m
+    down to 0.49 m at 12 levels), and half the points' cells loaded from
+    hierarchy 0 down to a depth drawn per point, as streaming leaves
+    them. ``gap`` holds the rows whose next finer cell was taken out of
+    the table (their finer cells stay)."""
+    from ..core.metadata import MetadataConfig
+    from ..render.kernel import MAX_HIERARCHIES
+
+    if case not in LOD_CASES + ("extreme",):
+        raise ValueError(f"unknown LOD case {case!r}")
+    rng = np.random.default_rng(seed)
+    config = MetadataConfig()
+    sizes = np.zeros(MAX_HIERARCHIES, np.float32)
+    for h in range(num_h):
+        sizes[h] = config.cell_size(h)
+    positions = (rng.uniform(0.0, 1.0, (n, 3)) * [50.0, 20.0, 3.0]
+                 + [-25.0, -10.0, 0.0]).astype(np.float32)
+    point_h = rng.integers(0, 8, n).astype(np.int32)
+    if case == "padding":  # the renderer pads a bucket with zero rows
+        positions[n - n // 4:] = 0.0
+        point_h[n - n // 4:] = 0
+    if case == "own_out_of_range":
+        point_h[::4] = num_h - 1
+        point_h[1::4] = num_h + 5
+        point_h[2::8] = -1
+        # unloaded rows (odd rows are never sampled) far off the area:
+        # their first probe misses, so they keep -1
+        point_h[3::16] = -1
+        positions[3::16] = [600.0, 0.0, 0.0]
+
+    def cells(p, h):
+        idx = np.floor(p / sizes[h]).astype(np.int32)
+        return np.concatenate([np.full((len(p), 1), h, np.int32), idx], 1)
+
+    sampled = positions[::2]
+    depth = rng.integers(0, num_h + 1, len(sampled))
+    rows = [cells(sampled[depth > h], h) for h in range(num_h)]
+    table = np.concatenate(rows) if case != "empty_table" else \
+        np.zeros((0, 4), np.int32)
+    gap = np.zeros(n, bool)
+    if case == "gap":
+        # every fourth sampled row loses its next finer cell, which rows
+        # sharing that cell lose too
+        cut = np.arange(0, n, 8)
+        cut = cut[point_h[cut] + 2 < num_h]
+        drop = {tuple(cells(positions[[i]], point_h[i] + 1)[0]) for i in cut}
+        table = np.array([r for r in table if tuple(r) not in drop],
+                         np.int32).reshape(-1, 4)
+        gap[cut] = True
+    if case == "extreme":  # after the table: these rows' cells stay out
+        positions[::7] = [3e9, -3e9, 1e30]
+        positions[1::7] = [np.inf, -np.inf, np.nan]
+    return positions, point_h, sizes, table, gap

@@ -165,6 +165,8 @@ def load_kernels():
         lib.pc_class_rank.restype = ctypes.c_int
         lib.pc_class_rank.argtypes = ([ptr, i32, i64, i32, ptr, i64]
                                       + [ptr] * 4 + [i64, ptr])
+        lib.pc_lod_select.restype = ctypes.c_int
+        lib.pc_lod_select.argtypes = [ptr] * 4 + [i64, i32, ptr, i64, ptr]
         build_info.update(path=str(lib_path), seconds=seconds)
         _lib = lib
         return _lib

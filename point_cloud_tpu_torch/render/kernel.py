@@ -5,7 +5,9 @@ of render/kernel.py).
   :data:`HASH_EMPTY`, :data:`BUCKET_ROWS`, :func:`_hash_rows_np` and
   :func:`build_loaded_cells_hash`, the host side of the loaded-cells hash.
 - Torch half: :func:`hash_member` and :func:`lod_select` (the LOD walk,
-  integer compares after one divide), and the camera pass
+  integer compares after one divide: K6, ``csrc/lod_select.cu``, one
+  launch a call; its plain version :func:`lod_select_reference`, the
+  eager walk a level at a time), and the camera pass
   :func:`cull_classify`, whose callers :func:`_cull_body`,
   :func:`cull_classify_pass` and :func:`cull_lod_pass` keep the
   reference's signatures and outputs; :func:`fit_counts`, the
@@ -20,7 +22,9 @@ IEEE arithmetic in the same order (the 4-term dot products pairwise, as
 XLA:CPU sums its (N,4)x(4,4) product; never ``torch.matmul``, never
 ``.sum()`` or ``norm``). Every divisor is a tensor on the data's device:
 PyTorch's CUDA division by a CPU scalar multiplies by the reciprocal.
-``launches`` counts the kernel's launches.
+``launches`` counts the kernel's launches. :func:`lod_select` routes the
+same way (the kernel on a CUDA tensor or a raise, the plain version on a
+CPU tensor); ``lod_launches`` counts K6's launches.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 MAX_HIERARCHIES = 24  # static unroll bound for the LOD walk
 PYRAMID_TILE = 8  # px per coarse occlusion tile (depth-pyramid pre-cull)
 
-launches = 0
+launches = 0  # K1
+lod_launches = 0  # K6
 
 # --- loaded-cell membership: the bucketized hash table (NumPy side) -------
 
@@ -159,11 +164,12 @@ def loaded_cells_member(table, targets):
     return (lo < m) & found
 
 
-def lod_select(positions, point_hierarchy, cell_sizes, num_hierarchies: int,
-               loaded_cells):
-    """LOD selection (kernel.py:172-196): walk from each point's own
-    hierarchy toward finer ones while the containing finer cell is loaded.
-    Camera-independent, so the renderer caches it per loaded set."""
+def lod_select_reference(positions, point_hierarchy, cell_sizes,
+                         num_hierarchies: int, loaded_cells):
+    """Plain version of K6, LOD selection (kernel.py:172-196): walk from
+    each point's own hierarchy toward finer ones while the containing
+    finer cell is loaded. Camera-independent, so the renderer caches it
+    per loaded set."""
     n = positions.shape[0]
     last = num_hierarchies - 1
     own = torch.clamp_max(point_hierarchy, last)
@@ -180,6 +186,68 @@ def lod_select(positions, point_hierarchy, cell_sizes, num_hierarchies: int,
         alive = torch.where(relevant, alive & found, alive)
         result = torch.where(relevant & alive, h, result)
     return result
+
+
+def _check_tensors(name: str, expect, dev) -> None:
+    """Each ``(tensor, dtype, shape)`` of ``expect`` is a contiguous tensor
+    of that dtype and shape on ``dev``, as a CUDA wrapper's launch needs."""
+    for t, dtype, shape in expect:
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} takes {dtype} {shape} contiguous tensors on {dev}; "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_lod_args(positions, point_hierarchy, cell_sizes,
+                    num_hierarchies: int, loaded_cells):
+    n = positions.shape[0]
+    nb = loaded_cells.shape[:1]
+    _check_tensors("lod_select", (
+        (positions, torch.float32, (n, 3)),
+        (point_hierarchy, torch.int32, (n,)),
+        (cell_sizes, torch.float32, (cell_sizes.numel(),)),
+        (loaded_cells, torch.int32, (*nb, BUCKET_ROWS * 4))),
+        positions.device)
+    if cell_sizes.numel() < num_hierarchies:
+        raise ValueError("lod_select: cell_sizes needs an entry a hierarchy")
+    if not nb[0] or nb[0] & (nb[0] - 1) or loaded_cells.data_ptr() % 16:
+        raise ValueError("lod_select: loaded_cells must be a 16-byte aligned "
+                         "(NB, 16) table, NB a power of two "
+                         "(build_loaded_cells_hash)")
+
+
+def lod_select(positions, point_hierarchy, cell_sizes, num_hierarchies: int,
+               loaded_cells):
+    """K6: :func:`lod_select_reference`'s function, launched as the
+    ``csrc/lod_select.cu`` kernel on a CUDA tensor (one launch a call, no
+    fallback) and run as that plain version on a CPU tensor. Same
+    arguments and result ((N,) int32)."""
+    global lod_launches
+    dev = positions.device
+    if dev.type == "cpu":
+        return lod_select_reference(positions, point_hierarchy, cell_sizes,
+                                    num_hierarchies, loaded_cells)
+    if dev.type != "cuda":
+        raise ValueError(f"lod_select runs on cuda or cpu, not {dev}")
+    _check_lod_args(positions, point_hierarchy, cell_sizes, num_hierarchies,
+                    loaded_cells)
+    from ..ops.runtime import load_kernels
+
+    lib = load_kernels()
+    n = positions.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pc_lod_select(
+            positions.data_ptr(), point_hierarchy.data_ptr(),
+            cell_sizes.data_ptr(), loaded_cells.data_ptr(),
+            loaded_cells.shape[0], int(num_hierarchies) - 1, out.data_ptr(),
+            n, stream)
+    if rc != 0:
+        raise RuntimeError(f"pc_lod_select launch failed: cudaError {rc}")
+    lod_launches += 1
+    return out
 
 
 # --- the camera pass: K1 and its plain twin -------------------------------

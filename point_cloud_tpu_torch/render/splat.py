@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from . import kernel
+from .kernel import _check_tensors
 
 CLEAR_COLOR = (0.16, 0.16, 0.16)  # wgpu.rs:310-316
 CLEAR_COLOR_U8 = tuple(int(c * 255.0 + 0.5) for c in CLEAR_COLOR)
@@ -945,15 +946,6 @@ def emit_fragment_columns(view_pos, ndc, radius, point_id, perm, offsets,
         raise RuntimeError(f"pc_emit_fragments launch failed: cudaError {rc}")
     fragment_launches += 1
     return tuple(cols)
-
-
-def _check_tensors(name: str, expect, dev) -> None:
-    for t, dtype, shape in expect:
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"{name} takes {dtype} {shape} contiguous tensors on {dev}; "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _sort4_frags(pix, depth_bits, ids, arrival=None):

@@ -3,7 +3,11 @@
 - The copied host modules (caches, transform, camera, frustums, fly cam,
   streamer, the NumPy half of the hash) give the reference's results on
   the same inputs.
-- ``hash_member`` and ``lod_select`` equal JAX's exactly.
+- ``hash_member`` and ``lod_select`` equal JAX's exactly; on a CPU
+  tensor ``lod_select`` runs its plain version (no K6 launch), which
+  equals JAX's walk and a row-at-a-time NumPy walk on twelve hierarchies:
+  own hierarchies past the last and below 0, a missing coarse cell under
+  loaded finer ones (the walk stops there), no loaded cell, padding rows.
 - K1's plain version (``cull_classify_reference``, what the cull runs on
   a CPU tensor) gives JAX's ``_cull_body`` view_pos and ndc bit for bit:
   the pairwise dot reproduces XLA:CPU's (N,4)x(4,4) product. keep,
@@ -56,6 +60,7 @@ from point_cloud_tpu.core.point import PointBatch as RPointBatch
 from point_cloud_tpu.render import camera as rcamera
 from point_cloud_tpu_torch.core.cell import Cell as TCell
 from point_cloud_tpu_torch.core.metadata import Metadata as TMetadata
+from point_cloud_tpu_torch.models.synth import LOD_CASES, LOD_LEVELS, lod_case
 from point_cloud_tpu_torch.render import camera as tcamera
 from point_cloud_tpu_torch.render import kernel as tkernel
 from point_cloud_tpu_torch.render import splat as tsplat
@@ -323,6 +328,104 @@ def test_lod_select_matches_jax():
                              num_h, as_t(hash_table)).numpy()
     assert np.array_equal(got, ref)
     assert (got > point_h).sum() > 100  # the walk really moved points
+
+
+def lod_walk_reference_np(positions, point_h, sizes, num_h, table):
+    """The walk one row at a time over a set of loaded rows: the NumPy
+    statement of kernel.py:172-196 the cases are held to."""
+    loaded = {tuple(r) for r in table}
+    last = num_h - 1
+    out = np.minimum(point_h, last)
+    for i in range(len(positions)):
+        for h in range(max(int(out[i]) + 1, 1), last + 1):
+            cell = (h, *np.floor(positions[i] / sizes[h]).astype(np.int32))
+            if tuple(int(c) for c in cell) not in loaded:
+                break
+            out[i] = h
+    return out
+
+
+@pytest.mark.parametrize("case", LOD_CASES)
+def test_lod_select_cases_match_jax(case):
+    """The wrapper on a CPU tensor runs the plain version (no K6 launch)
+    and gives JAX's walk and the row-at-a-time walk on every case."""
+    rkernel, _ = jax_render()
+    import jax.numpy as jnp
+
+    positions, point_h, sizes, table, gap = lod_case(case)
+    hash_table = rkernel.build_loaded_cells_hash(table)
+    assert np.array_equal(hash_table, tkernel.build_loaded_cells_hash(table))
+    ref = np.asarray(rkernel.lod_select(
+        jnp.asarray(positions), jnp.asarray(point_h), jnp.asarray(sizes),
+        LOD_LEVELS, jnp.asarray(hash_table)))
+    before = tkernel.lod_launches
+    got = tkernel.lod_select(as_t(positions), as_t(point_h), as_t(sizes),
+                             LOD_LEVELS, as_t(hash_table))
+    assert tkernel.lod_launches == before
+    assert got.dtype == torch.int32 and got.shape == (len(positions),)
+    got = got.numpy()
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, lod_walk_reference_np(
+        positions, point_h, sizes, LOD_LEVELS, table))
+    own = np.minimum(point_h, LOD_LEVELS - 1)
+    if case == "empty_table":
+        assert np.array_equal(got, own)
+    else:  # the walk moved rows
+        assert (got > own).sum() > (100 if case == "gap" else len(got) // 8)
+    if case == "gap":  # the walk stops at the missing cell
+        assert gap.sum() > 100 and np.array_equal(got[gap], own[gap])
+        loaded = {tuple(r) for r in table}
+        finer = [(int(own[i]) + 2, *np.floor(
+            positions[i] / sizes[own[i] + 2]).astype(np.int32))
+            for i in np.flatnonzero(gap)]
+        assert sum(tuple(int(c) for c in f) in loaded for f in finer) > 10
+    if case == "own_out_of_range":
+        past = point_h >= LOD_LEVELS - 1
+        assert np.array_equal(got[past], np.full(past.sum(), LOD_LEVELS - 1))
+        assert (got[point_h < 0] >= 0).any()
+        assert np.array_equal(got[3::16], np.full(len(got[3::16]), -1))
+
+
+def test_lod_select_routes_by_device():
+    """CPU tensors run the plain version; a device that is neither the
+    card nor the CPU raises (no fallback)."""
+    positions, point_h, sizes, table, _ = lod_case("deep", n=256)
+    args = [as_t(positions), as_t(point_h), as_t(sizes), LOD_LEVELS,
+            as_t(tkernel.build_loaded_cells_hash(table))]
+    assert torch.equal(tkernel.lod_select(*args),
+                       tkernel.lod_select_reference(*args))
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tkernel.lod_select(*meta)
+
+
+@pytest.mark.parametrize("broken", ["hier_i64", "pos_strided", "sizes_short",
+                                    "table_not_pow2", "table_width",
+                                    "table_1d", "table_offset"])
+def test_lod_select_checks_kernel_arguments(broken):
+    """What K6 does not take raises before a launch."""
+    positions, point_h, sizes, table, _ = lod_case("deep", n=256)
+    args = {"positions": as_t(positions), "point_hierarchy": as_t(point_h),
+            "cell_sizes": as_t(sizes), "num_hierarchies": LOD_LEVELS,
+            "loaded_cells": as_t(tkernel.build_loaded_cells_hash(table))}
+    tkernel._check_lod_args(**args)
+    if broken == "hier_i64":
+        args["point_hierarchy"] = args["point_hierarchy"].long()
+    elif broken == "pos_strided":
+        args["positions"] = torch.zeros(256, 6)[:, ::2]
+    elif broken == "sizes_short":
+        args["cell_sizes"] = args["cell_sizes"][: LOD_LEVELS - 1].clone()
+    elif broken == "table_not_pow2":
+        args["loaded_cells"] = args["loaded_cells"][:48].clone()
+    elif broken == "table_width":
+        args["loaded_cells"] = args["loaded_cells"][:, :12].clone()
+    elif broken == "table_1d":
+        args["loaded_cells"] = args["loaded_cells"].reshape(-1)
+    else:  # a view 4 bytes past an aligned start
+        args["loaded_cells"] = torch.zeros(
+            64 * 16 + 1, dtype=torch.int32)[1:].reshape(64, 16)
+    with pytest.raises(ValueError, match="lod_select"):
+        tkernel._check_lod_args(**args)
 
 
 # --- K1: the cull and classify pass ---------------------------------------
@@ -1504,7 +1607,7 @@ def test_renderer_needs_a_card_for_cuda():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the cull and raster kernels have no "
+        pytest.skip("needs a CUDA card: the cull, LOD and raster kernels have no "
                     "CPU mode")
     return torch.device("cuda")
 
@@ -1529,6 +1632,32 @@ class TestKernelsOnCard:
         assert tkernel.launches == before + 1
         for g, r in zip(got, ref):
             assert bits_equal(g.cpu().numpy(), r.cpu().numpy())
+
+    @pytest.mark.parametrize("case,log_n", (
+        [("deep", log_n) for log_n in range(12, 19)]
+        + [(case, 14) for case in LOD_CASES[1:]] + [("extreme", 14)]))
+    def test_lod_kernel_matches_plain(self, cuda_device, case, log_n):
+        """K6 bit-equal to its plain version at the orbit's bucket sizes
+        (2^12-2^18 rows) on twelve hierarchies and on every edge case;
+        ``extreme`` adds rows at +-3e9, 1e30, inf and NaN, whose cell
+        indices saturate (NaN to 0) on either side. One launch a call."""
+        positions, point_h, sizes, table, gap = lod_case(
+            case, n=1 << log_n, seed=log_n)
+        dev = lambda a: as_t(a).to(cuda_device)
+        args = (dev(positions), dev(point_h), dev(sizes), LOD_LEVELS,
+                dev(tkernel.build_loaded_cells_hash(table)))
+        before = tkernel.lod_launches
+        got = tkernel.lod_select(*args)
+        assert tkernel.lod_launches == before + 1
+        ref = tkernel.lod_select_reference(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+        own = np.minimum(point_h, LOD_LEVELS - 1)
+        got = got.cpu().numpy()
+        if case == "gap":
+            assert np.array_equal(got[gap], own[gap])
+        if case != "empty_table":
+            assert (got > own).sum() > 100
 
     @pytest.mark.parametrize("k", [1, 2, 3])
     def test_raster_kernel_rounds_like_plain(self, cuda_device, k):
